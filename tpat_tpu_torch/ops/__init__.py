@@ -1,0 +1,2 @@
+"""Tensor ops of the port: plain PyTorch functions and the wrappers of the
+hand-written Hopper kernels (``qkv_attention``)."""
