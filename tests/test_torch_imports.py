@@ -10,7 +10,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tpat_tpu_torch")
 MODULES = (
     "tpat_tpu_torch, tpat_tpu_torch.models.vit, tpat_tpu_torch.utils.serving, "
-    "tpat_tpu_torch.cli.export_serving, tpat_tpu_torch.cli.profile_forward"
+    "tpat_tpu_torch.cli.export_serving, tpat_tpu_torch.cli.profile_forward, "
+    "tpat_tpu_torch.cli.profile_train, "
+    "tpat_tpu_torch.engine.train, tpat_tpu_torch.engine.optimizer, "
+    "tpat_tpu_torch.engine.schedules"
 )
 
 

@@ -6,6 +6,8 @@ model runs attention_impl='fused' (C = 256 is a multiple of 128, so its
 Pallas kernel runs, in interpret mode); the port on the CPU runs its plain
 kernel version."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -134,12 +136,14 @@ def test_unported_features_refuse():
     x = torch.zeros(1, 1, 128, 128)
     with pytest.raises(NotImplementedError):
         model(x, custom_rank="mean")
-    with pytest.raises(NotImplementedError):
+    # 2D masking and drop-path are ported; in training they draw from an
+    # explicit generator and refuse to run without one
+    with pytest.raises(ValueError, match="2D masking"):
         model(x, mask_t_prob=0.2, mask_f_prob=0.2)
-    with pytest.raises(NotImplementedError, match="drop-path"):
-        AudioViT(audiomae_vit_base(target_length=32, num_classes=2))(
-            torch.zeros(1, 1, 32, 128)
-        )
+    with pytest.raises(ValueError, match="drop-path"):
+        AudioViT(dataclasses.replace(cfg, drop_path_rate=0.1))(x)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        AudioViT(dataclasses.replace(cfg, drop_rate=0.1))(x)
     from tpat_tpu.config import ast_vit_base
 
     with pytest.raises(NotImplementedError, match="AST"):

@@ -173,12 +173,15 @@ def test_wrapper_validates_before_dispatch():
         qa.fused_qkv_attention(qkv.double(), 2, None, 1)
     with pytest.raises(ValueError, match="num_extra_tokens"):
         qa.fused_qkv_attention(qkv, 2, "patch_mean", 5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="importance"):
         attention_with_scores(
             qkv[..., :64].reshape(1, 1, 5, 64), qkv[..., :64].reshape(1, 1, 5, 64),
             qkv[..., :64].reshape(1, 1, 5, 64), num_extra_tokens=1,
-            importance="patch_mean", token_mask=torch.ones(1, 4, dtype=torch.bool),
+            importance="mean", token_mask=torch.ones(1, 4, dtype=torch.bool),
         )
+    for kv in (1, 6, 3.0):  # kv_valid must be an int in (extra, N]
+        with pytest.raises(ValueError, match="kv_valid"):
+            qa.fused_qkv_attention_prefix(qkv, kv, 2, "patch_mean", 1)
     assert qa.supports(12, 64, 257) and qa.supports(16, 80, 513)
     assert not qa.supports(4, 32, 17) and not qa.supports(12, 64, 0)
     assert qa.launches == 0

@@ -114,28 +114,40 @@ def profile(cfg, batch: int, top: int) -> dict:
                 model(x)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / forwards
-    rows = [
-        {"name": e.key, "calls_per_forward": e.count / forwards,
-         "device_ms_per_forward": e.self_device_time_total / 1e3 / forwards}
-        for e in prof.key_averages()
-        if e.self_device_time_total > 0 and e.device_type.name == "CUDA"
-    ]
-    rows.sort(key=lambda r: -r["device_ms_per_forward"])
+    rows = kernel_rows(prof, forwards)
     return {
         "batch": batch,
         "wall_ms_per_forward": wall,
-        "device_ms_per_forward": sum(r["device_ms_per_forward"] for r in rows),
+        "device_ms_per_forward": sum(r["device_ms"] for r in rows),
         "kernels": rows[:top],
     }
+
+
+def kernel_rows(prof, runs: int) -> list:
+    """The device kernels of a ``torch.profiler`` trace over ``runs``
+    repetitions, ranked by device time: calls and device ms per run."""
+    rows = [
+        {"name": e.key, "calls": e.count / runs,
+         "device_ms": e.self_device_time_total / 1e3 / runs}
+        for e in prof.key_averages()
+        if e.self_device_time_total > 0 and e.device_type.name == "CUDA"
+    ]
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def main(args):
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     print(f"card: {card}", flush=True)
     buckets = [int(b) for b in args.buckets.split(",") if b.strip()]
     cfg = serving_config()
@@ -150,8 +162,8 @@ def main(args):
           f"ms, device kernels {prof['device_ms_per_forward']:.3f} ms per "
           "forward", flush=True)
     for r in prof["kernels"]:
-        print(f"  {r['device_ms_per_forward']:9.3f} ms  "
-              f"x{r['calls_per_forward']:g}  {r['name'][:100]}", flush=True)
+        print(f"  {r['device_ms']:9.3f} ms  x{r['calls']:g}  {r['name'][:100]}",
+              flush=True)
     result = {"card": card,
               "forward_ms": times, "profile": prof}
     if args.out:

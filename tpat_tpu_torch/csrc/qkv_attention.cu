@@ -1,18 +1,20 @@
 // Fused packed-qkv attention forward with pruning-score emission, for Hopper
 // (sm_90a).
 //
-// Replaces tpat_tpu/ops/pallas_attention.py::_qkv_kernel (non-prefix form),
-// the TPU kernel every block of the static-pruned eval forward runs
+// Replaces tpat_tpu/ops/pallas_attention.py::_qkv_kernel in both its forms:
+// the plain one every block of the static forward runs, and the prefix one
+// (prefix=True, kv_valid) the hybrid anneal runs after its first drop block
 // (models/vit.py::PrunedAttention with attention_impl='fused').
 //
 // What it computes, per (batch b, head h):
-//   p   = softmax(q . k^T * D^-1/2) in f32 over all N keys (exact, not
-//         approximate), normalised by multiplying with the reciprocal of the
-//         row sum;
+//   p   = softmax(q . k^T * D^-1/2) in f32 over the keys [0, kv_valid)
+//         (exact, not approximate), normalised by multiplying with the
+//         reciprocal of the row sum; keys at or past kv_valid get p = 0, as
+//         the TPU kernel's -1e30 logit gives them (kv_valid = N: all keys);
 //   out = cast_to_input_dtype(p) . v, accumulated in f32, written in the
 //         input dtype -- the same rounding point as the JAX kernel;
-//   'patch_mean': column sums of the normalised f32 p over query rows >= extra
-//                 (the AudioMAE importance signal);
+//   'patch_mean': column sums of the normalised f32 p over query rows in
+//                 [extra, kv_valid) (the AudioMAE importance signal);
 //   'cls':        the row-0 probabilities (the AST importance signal);
 //   none:         no score output and no score work.
 // q, k and v are read straight out of the packed (B, N, 3C) projection output
@@ -40,7 +42,10 @@
 //     head dims tx + 16j); shared rows are padded by one float so the column
 //     walks of the micro-tile hit distinct banks;
 //   - ragged edges (none of 257/181/127/90 is a multiple of 64) are masked:
-//     rows past N load as zero and are never written, keys past N get p = 0.
+//     rows past N load as zero and are never written, keys past N get p = 0;
+//   - the prefix form is the same code with kv_valid < N in the key
+//     predicate: rows at or past kv_valid are still computed and written, as
+//     on the TPU (later blocks read them; the pooled feature leaves them out).
 // Plain FMA loops, no tensor cores: the first port is right and simple;
 // mma/wgmma tiles are later work.
 
@@ -161,7 +166,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     qkv_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                              float* __restrict__ colsum, int n, int num_heads,
-                             int mode, int extra, float scale) {
+                             int mode, int extra, int kv_valid, float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   using S = Smem<D>;
   constexpr int kDj = D / 16;
@@ -206,12 +211,13 @@ __global__ void __launch_bounds__(kThreads)
       float mt = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j < n) mt = fmaxf(mt, s[i][j]);
-      const float m_new = fmaxf(m[i], row_max(mt));  // key k0 is always valid
+        if (k0 + tx + 16 * j < kv_valid) mt = fmaxf(mt, s[i][j]);
+      // key 0 is valid, so m is finite from the first tile on
+      const float m_new = fmaxf(m[i], row_max(mt));
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j < n) sum += expf(s[i][j] - m_new);
+        if (k0 + tx + 16 * j < kv_valid) sum += expf(s[i][j] - m_new);
       l[i] = l[i] * expf(m[i] - m_new) + row_sum(sum);
       m[i] = m_new;
     }
@@ -239,7 +245,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         ps[(ty + 16 * i) * S::kPLd + tx + 16 * j] =
-            k0 + tx + 16 * j < n ? expf(s[i][j] - m[i]) * inv[i] : 0.f;
+            k0 + tx + 16 * j < kv_valid ? expf(s[i][j] - m[i]) * inv[i] : 0.f;
     __syncthreads();
 
     const int kn = min(kBK, n - k0);
@@ -263,7 +269,7 @@ __global__ void __launch_bounds__(kThreads)
       float acc = 0.f;
       for (int r = part * 16; r < part * 16 + 16; ++r) {
         const int row = q0 + r;
-        if (row >= extra && row < n) acc += ps[r * S::kPLd + col];
+        if (row >= extra && row < kv_valid) acc += ps[r * S::kPLd + col];
       }
       red[part * kBK + col] = acc;
       __syncthreads();
@@ -295,8 +301,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 cudaError_t launch(const void* qkv, void* out, void* colsum, int batch, int n,
-                   int num_heads, int mode, int extra, float scale,
-                   cudaStream_t stream) {
+                   int num_heads, int mode, int extra, int kv_valid,
+                   float scale, cudaStream_t stream) {
   auto kernel = qkv_attention_fwd_kernel<T, D>;
   constexpr size_t smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -306,7 +312,8 @@ cudaError_t launch(const void* qkv, void* out, void* colsum, int batch, int n,
   const dim3 grid((n + kBQ - 1) / kBQ, num_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out),
-      static_cast<float*>(colsum), n, num_heads, mode, extra, scale);
+      static_cast<float*>(colsum), n, num_heads, mode, extra, kv_valid,
+      scale);
   return cudaGetLastError();
 }
 
@@ -319,29 +326,32 @@ extern "C" int tpat_qkv_attention_qtile() { return kBQ; }
 // dtype: 0 = float32, 1 = bfloat16.  mode: 0 = none, 1 = patch_mean,
 // 2 = cls.  colsum: (batch, num_heads, n_qtiles, n) f32 for patch_mean, with
 // n_qtiles = ceil(n / tpat_qkv_attention_qtile()),
-// (batch, num_heads, 1, n) for cls, unused for none.  Returns the CUDA error
-// of the launch (0 on success).
+// (batch, num_heads, 1, n) for cls, unused for none.  kv_valid in
+// (extra, n]: keys [0, kv_valid) are valid (n for the plain form).  Returns
+// the CUDA error of the launch (0 on success).
 extern "C" int tpat_qkv_attention_fwd(const void* qkv, void* out, void* colsum,
                                       int batch, int n, int num_heads,
                                       int head_dim, int dtype, int mode,
-                                      int extra, float scale, void* stream) {
+                                      int extra, int kv_valid, float scale,
+                                      void* stream) {
   if (batch < 1 || batch > 65535 || n < 1 || num_heads < 1 ||
       num_heads > 65535 || mode < kModeNone || mode > kModeCls || extra < 0 ||
+      kv_valid <= extra || kv_valid > n ||
       (mode != kModeNone && colsum == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
     return launch<float, 64>(qkv, out, colsum, batch, n, num_heads, mode,
-                             extra, scale, s);
+                             extra, kv_valid, scale, s);
   if (dtype == 0 && head_dim == 80)
     return launch<float, 80>(qkv, out, colsum, batch, n, num_heads, mode,
-                             extra, scale, s);
+                             extra, kv_valid, scale, s);
   if (dtype == 1 && head_dim == 64)
     return launch<__nv_bfloat16, 64>(qkv, out, colsum, batch, n, num_heads,
-                                     mode, extra, scale, s);
+                                     mode, extra, kv_valid, scale, s);
   if (dtype == 1 && head_dim == 80)
     return launch<__nv_bfloat16, 80>(qkv, out, colsum, batch, n, num_heads,
-                                     mode, extra, scale, s);
+                                     mode, extra, kv_valid, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,14 @@
-"""Token-pruning audio ViT, static eval path (port of
-``tpat_tpu/models/vit.py``: ``PatchEmbed``, ``Mlp``, ``FusedLayerNorm``,
-``PrunedAttention``, ``Block._call_impl`` and ``AudioViT.__call__``).
+"""Token-pruning audio ViT (port of ``tpat_tpu/models/vit.py``:
+``PatchEmbed``, ``Mlp``, ``FusedLayerNorm``, ``PrunedAttention``, ``Block``
+and ``AudioViT`` with its static, masked and hybrid forwards).
 
 After the attention residual of a pruning block the ``ceil(keep_rate * P)``
 highest-importance patch tokens are kept (extra tokens stay at the front,
 kept tokens in descending importance) and the MLP runs on the reduced
-sequence, so every width is static for a given keep-rate tuple.
+sequence, so every width is static for a given keep-rate tuple.  The anneal
+forwards carry the exact scheduled kept counts as a boolean token mask:
+``forward_masked`` at full width, ``forward_hybrid`` inside bucket-level
+widths, where the mask is a uniform prefix the prefix kernel consumes.
 
 Module names equal the reference ``.pth`` keys (``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,
@@ -17,28 +20,34 @@ compute dtype at use (flax's ``Dense(dtype=...)``), LayerNorm statistics run
 in f32 with the output cast to the compute dtype, the residual stream is in
 the compute dtype, and the head runs in f32.
 
-Ported: the AudioMAE flavour (1 extra token, gap_fcnorm pooling).  Not yet
-ported, and refused with an error: the AST flavour (cls_dist pooling),
-``custom_rank``, 2D time/frequency masking, dropout and drop-path,
-``remat``, and the masked and hybrid anneal forwards.
+Training randomness (drop-path, 2D time/frequency masking) draws from the
+``torch.Generator`` the caller passes, never from the global RNG.
+
+Ported: the AudioMAE flavour (1 extra token, gap_fcnorm pooling), with
+drop-path and 2D masking in training.  Not yet ported, and refused with an
+error: the AST flavour (cls_dist pooling), ``custom_rank``, dropout
+(``drop_rate`` > 0 in training; every reference config has 0), ``remat``,
+and ``forward_masked``'s ``num_left_tables`` and intensity band.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpat_tpu_torch.config import ViTConfig
+from tpat_tpu_torch.config import ViTConfig, compose_kept_counts
 from tpat_tpu_torch.models.pos_embed import sincos_2d
 from tpat_tpu_torch.ops import pruning
 from tpat_tpu_torch.ops.fast_gelu import gelu_poly
+from tpat_tpu_torch.ops.attention import attention_with_scores
 from tpat_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_plain,
+    fused_qkv_attention_prefix,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -46,6 +55,31 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def compute_dtype(cfg: ViTConfig) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
+
+
+def _need_generator(generator: Optional[torch.Generator], what: str):
+    if generator is None:
+        raise ValueError(
+            f"{what} draws random numbers: pass a torch.Generator on the "
+            "model's device as `generator`"
+        )
+    return generator
+
+
+def drop_path(
+    x: torch.Tensor, rate: float, training: bool,
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """Stochastic depth on a residual branch (timm DropPath, ``vit.py:84-94``):
+    each sample's branch is kept with probability 1 - rate and then divided
+    by 1 - rate, or zeroed.  Off in eval and at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    u = torch.rand(shape, generator=_need_generator(generator, "drop-path"),
+                   device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class Linear(nn.Linear):
@@ -125,11 +159,16 @@ class Mlp(nn.Module):
 class PrunedAttention(nn.Module):
     """QKV self-attention emitting the pruning importance scores
     (``vit.py:165-254``).  ``attention_impl='xla'`` takes the plain
-    ``fused_qkv_attention_plain``; any other value takes
-    ``fused_qkv_attention`` (``ops/qkv_attention.py``), which launches the
-    kernel on a CUDA tensor or raises for a geometry it does not take.  The
-    Hopper kernel takes head_dim 80 natively, so ``'fused_padded'`` (a TPU
-    lane-padding workaround) dispatches like ``'fused'``."""
+    attention; any other value takes the kernels (``ops/qkv_attention.py``),
+    which launch on a CUDA tensor or raise for a geometry they do not take.
+    The Hopper kernels take head_dim 80 natively, so ``'fused_padded'`` (a
+    TPU lane-padding workaround) dispatches like ``'fused'``.
+
+    ``token_mask`` ((B, P) bool) restricts attention to kept tokens; with
+    ``prefix_len`` (a host int) the caller states that the mask keeps the
+    first ``prefix_len`` patch tokens of every sample, and the kernel path
+    takes ``fused_qkv_attention_prefix`` instead of the masked plain
+    attention (``vit.py:217-247``)."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -140,52 +179,129 @@ class PrunedAttention(nn.Module):
         self.proj = Linear(c, c, compute_dtype=dt)
 
     def forward(
-        self, x: torch.Tensor, need_scores: bool
+        self,
+        x: torch.Tensor,
+        need_scores: bool,
+        token_mask: Optional[torch.Tensor] = None,
+        prefix_len: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
+        e = cfg.num_extra_tokens
         mode = cfg.importance if need_scores else None
-        attend = (fused_qkv_attention_plain if cfg.attention_impl == "xla"
-                  else fused_qkv_attention)
-        out, scores = attend(
-            self.qkv(x), cfg.num_heads, mode, cfg.num_extra_tokens
-        )
+        qkv = self.qkv(x)
+        kernel = cfg.attention_impl != "xla"
+        if token_mask is None:
+            attend = fused_qkv_attention if kernel else fused_qkv_attention_plain
+            out, scores = attend(qkv, cfg.num_heads, mode, e)
+        elif kernel and prefix_len is not None:
+            out, scores = fused_qkv_attention_prefix(
+                qkv, e + prefix_len, cfg.num_heads, mode, e
+            )
+        else:
+            b, n, c3 = qkv.shape
+            q, k, v = (
+                t.reshape(b, n, cfg.num_heads, -1).transpose(1, 2)
+                for t in qkv.chunk(3, dim=-1)
+            )
+            out, scores = attention_with_scores(
+                q, k, v, num_extra_tokens=e, importance=cfg.importance,
+                token_mask=token_mask, need_scores=need_scores,
+            )
+            out = out.transpose(1, 2).reshape(b, n, c3 // 3)
         return self.proj(out), scores
 
 
 class Block(nn.Module):
     """Pre-norm transformer block with post-attention token pruning
-    (``vit.py:307-348``)."""
+    (``vit.py:257-433``)."""
 
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, drop_path_rate: float = 0.0):
         super().__init__()
         dt = compute_dtype(cfg)
         self.num_extra_tokens = cfg.num_extra_tokens
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(cfg.embed_dim, cfg.layer_norm_eps, dt)
         self.attn = PrunedAttention(cfg)
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.layer_norm_eps, dt)
         self.mlp = Mlp(cfg)
 
+    def _residual(self, x, branch, generator):
+        return x + drop_path(branch, self.drop_path_rate, self.training,
+                             generator)
+
     def forward(
-        self, x: torch.Tensor, keep_rate: float, extract_features: bool
+        self, x: torch.Tensor, keep_rate: float, extract_features: bool,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Returns (x, aux); aux may hold 'scores' and 'topk_idx'."""
+        """Static-shape path.  Returns (x, aux); aux may hold 'scores' and
+        'topk_idx'."""
         e = self.num_extra_tokens
         p_in = x.shape[1] - e
         prune = keep_rate < 1.0
         attn_out, scores = self.attn(
             self.norm1(x), need_scores=prune or extract_features
         )
-        x = x + attn_out
+        x = self._residual(x, attn_out, generator)
         aux: Dict[str, torch.Tensor] = {}
         if extract_features and scores is not None:
             aux["scores"] = scores
         if prune:
             idx = pruning.topk_select(
-                scores, pruning.num_left_tokens(keep_rate, p_in)
+                scores.detach(), pruning.num_left_tokens(keep_rate, p_in)
             )
             x = pruning.gather_tokens(x, idx, e)
             aux["topk_idx"] = idx
-        return x + self.mlp(self.norm2(x)), aux
+        return self._residual(x, self.mlp(self.norm2(x)), generator), aux
+
+    def masked_call(
+        self,
+        x: torch.Tensor,
+        token_mask: torch.Tensor,
+        *,
+        keep_rate: Optional[float],
+        num_left: Optional[Union[int, torch.Tensor]] = None,
+        bucket_k: Optional[int] = None,
+        mask_is_full: bool = False,
+        prefix_len: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Masked (anneal) path (``vit.py:350-433``).  ``keep_rate`` is None
+        for a block that does not prune.  ``num_left`` is the exact kept
+        count from the host (``engine.schedules.masked_kept_counts``); None
+        takes the f32 ceil of ``pruning.masked_num_left`` per sample.
+
+        ``bucket_k`` (hybrid anneal): after the block, gather the top
+        ``bucket_k`` patch tokens by masked score (descending, ties to the
+        lower index -- the order ``masked_refine`` ranks by), so the kept set
+        becomes the prefix [0, num_left) of a static width.  ``mask_is_full``
+        states that no block has refined the mask yet, so attention runs
+        unmasked; ``prefix_len`` states that the mask is the uniform prefix
+        [0, prefix_len).  Returns (x, refined token_mask)."""
+        attn_out, scores = self.attn(
+            self.norm1(x),
+            need_scores=keep_rate is not None,
+            token_mask=None if mask_is_full else token_mask,
+            prefix_len=None if mask_is_full else prefix_len,
+        )
+        x = self._residual(x, attn_out, generator)
+
+        if keep_rate is not None:
+            scores = scores.detach()
+            if num_left is None:
+                num_left = pruning.masked_num_left(keep_rate, token_mask.sum(1))
+            if bucket_k is not None:
+                masked = scores.masked_fill(~token_mask, float("-inf"))
+                idx = pruning.topk_select(masked, bucket_k)
+                x = pruning.gather_tokens(x, idx, self.num_extra_tokens)
+                if isinstance(num_left, torch.Tensor):
+                    num_left = num_left[:, None]
+                rank = torch.arange(bucket_k, device=x.device)
+                token_mask = (rank[None, :] < num_left).expand(x.shape[0], -1)
+            else:
+                token_mask = pruning.masked_refine(scores, token_mask, num_left)
+
+        x = self._residual(x, self.mlp(self.norm2(x)), generator)
+        return x, token_mask
 
 
 def _check_ported(cfg: ViTConfig):
@@ -198,8 +314,19 @@ def _check_ported(cfg: ViTConfig):
         raise NotImplementedError("remat (training) is not ported yet")
 
 
+def mask2d_noise(
+    batch: int, cfg: ViTConfig, generator: torch.Generator, device=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform noise over the time rows and the frequency columns of the
+    patch grid, whose argsorts pick the tokens 2D masking keeps."""
+    return (
+        torch.rand((batch, cfg.grid_t), generator=generator, device=device),
+        torch.rand((batch, cfg.grid_f), generator=generator, device=device),
+    )
+
+
 class AudioViT(nn.Module):
-    """The token-pruning audio ViT, static eval path.
+    """The token-pruning audio ViT: static, masked and hybrid forwards.
 
     Parameters are created on the CPU, initialised from ``generator`` (a
     fresh ``torch.Generator`` seeded 0 when None) and then moved to
@@ -223,7 +350,8 @@ class AudioViT(nn.Module):
             torch.zeros(1, cfg.num_patches + cfg.num_extra_tokens, d),
             requires_grad=not cfg.frozen_pos_embed,
         )
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
+        self.blocks = nn.ModuleList(Block(cfg, float(r)) for r in dpr)
         self.fc_norm = LayerNorm(d, cfg.layer_norm_eps, compute_dtype(cfg))
         self.head = nn.Linear(d, cfg.num_classes)
         if generator is None:
@@ -272,11 +400,57 @@ class AudioViT(nn.Module):
         cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
         return torch.cat([cls, tokens], dim=1) + self.pos_embed.to(tokens.dtype)
 
-    def pool_and_head(self, x: torch.Tensor) -> torch.Tensor:
+    def embed_masked2d(
+        self,
+        x: torch.Tensor,
+        mask_t_prob: float,
+        mask_f_prob: float,
+        noise: Tuple[torch.Tensor, torch.Tensor],
+    ) -> torch.Tensor:
+        """Structured 2D time/frequency token masking (``vit.py:691-736``):
+        pos is added to the patches, then the ``int(T (1 - p_t))`` time rows
+        with the smallest ``noise[0]`` are kept, then the ``int(F (1 - p_f))``
+        frequency columns with the smallest ``noise[1]``, tokens staying in
+        that permuted order; the CLS token gets pos row 0."""
+        cfg = self.cfg
+        tokens = self.patch_embed(x)
+        pos = self.pos_embed.to(tokens.dtype)
+        tokens = tokens + pos[:, 1:]
+        b, d = tokens.shape[0], cfg.embed_dim
+        t, f = cfg.grid_t, cfg.grid_f
+        keep_t = int(t * (1 - mask_t_prob))
+        keep_f = int(f * (1 - mask_f_prob))
+        noise_t, noise_f = noise
+        grid = tokens.reshape(b, t, f, d)
+        ids_t = torch.argsort(noise_t, dim=1, stable=True)[:, :keep_t]
+        grid = torch.gather(grid, 1, ids_t[:, :, None, None].expand(-1, -1, f, d))
+        grid = grid.transpose(1, 2)  # (B, F, T', D)
+        ids_f = torch.argsort(noise_f, dim=1, stable=True)[:, :keep_f]
+        grid = torch.gather(
+            grid, 1, ids_f[:, :, None, None].expand(-1, -1, keep_t, d)
+        )
+        tokens = grid.transpose(1, 2).reshape(b, keep_t * keep_f, d)
+        cls = (self.cls_token.to(tokens.dtype) + pos[:, :1]).expand(b, -1, -1)
+        return torch.cat([cls, tokens], dim=1)
+
+    def pool_and_head(
+        self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """Mean over patch tokens (f32 accumulation, result in the token
-        dtype), fc_norm, f32 head (``vit.py:603-616``)."""
-        feat = x[:, self.cfg.num_extra_tokens:].float().mean(dim=1).to(x.dtype)
+        dtype; over kept tokens only, through ``masked_mean``, when
+        ``token_mask`` is given), fc_norm, f32 head (``vit.py:603-616``)."""
+        patches = x[:, self.cfg.num_extra_tokens:]
+        if token_mask is not None:
+            feat = pruning.masked_mean(patches, token_mask)
+        else:
+            feat = patches.float().mean(dim=1).to(x.dtype)
         return self.head(self.fc_norm(feat).float())
+
+    def _check_training(self):
+        if self.training and self.cfg.drop_rate > 0.0:
+            raise NotImplementedError(
+                "dropout is not ported: call .eval(), or set drop_rate to 0"
+            )
 
     def forward(
         self,
@@ -287,26 +461,21 @@ class AudioViT(nn.Module):
         custom_rank: Optional[str] = None,
         mask_t_prob: float = 0.0,
         mask_f_prob: float = 0.0,
+        generator: Optional[torch.Generator] = None,
     ):
         """Static-shape forward (``vit.py:626-689``).  x: (B, 1, T, F).
 
         keep_rates: per-block floats (len == depth); None uses the config's
-        baked rates.  Returns logits (B, num_classes) f32, or (logits,
-        features) when ``extract_features``: 'mel', 'block-{i}.attn_score'
-        and 'block-{i}.topk_idx'.
+        baked rates.  ``mask_t_prob``/``mask_f_prob`` > 0 embed through 2D
+        masking, with noise drawn from ``generator``, which drop-path in
+        training draws from too.  Returns logits (B, num_classes) f32, or
+        (logits, features) when ``extract_features``: 'mel',
+        'block-{i}.attn_score' and 'block-{i}.topk_idx'.
         """
         cfg = self.cfg
         if custom_rank is not None:
             raise NotImplementedError("custom_rank is not ported yet")
-        if mask_t_prob > 0.0 or mask_f_prob > 0.0:
-            raise NotImplementedError(
-                "2D time/frequency token masking is not ported yet"
-            )
-        if self.training and (cfg.drop_rate > 0.0 or cfg.drop_path_rate > 0.0):
-            raise NotImplementedError(
-                "dropout and drop-path are not ported yet: call .eval(), or "
-                "set drop_rate and drop_path_rate to 0"
-            )
+        self._check_training()
         if keep_rates is None:
             keep_rates = cfg.keep_rates
         keep_rates = tuple(float(r) for r in keep_rates)
@@ -318,9 +487,14 @@ class AudioViT(nn.Module):
         features: Dict[str, torch.Tensor] = {}
         if extract_features:
             features["mel"] = x
-        tokens = self.embed(x)
+        if mask_t_prob > 0.0 or mask_f_prob > 0.0:
+            gen = _need_generator(generator, "2D masking")
+            noise = mask2d_noise(x.shape[0], cfg, gen, x.device)
+            tokens = self.embed_masked2d(x, mask_t_prob, mask_f_prob, noise)
+        else:
+            tokens = self.embed(x)
         for i, blk in enumerate(self.blocks):
-            tokens, aux = blk(tokens, keep_rates[i], extract_features)
+            tokens, aux = blk(tokens, keep_rates[i], extract_features, generator)
             if extract_features:
                 if "scores" in aux:
                     features[f"block-{i}.attn_score"] = aux["scores"]
@@ -330,3 +504,75 @@ class AudioViT(nn.Module):
         if extract_features:
             return logits, features
         return logits
+
+    def forward_masked(
+        self,
+        x: torch.Tensor,
+        keep_rates: Sequence[float],
+        *,
+        num_left: Optional[Sequence[int]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Full-width forward with per-block keep rates carried as a token
+        mask (``vit.py:742-833``, without the intensity band and
+        ``num_left_tables``).  ``num_left``: the exact per-block kept counts
+        from ``engine.schedules.masked_kept_counts``; None takes the f32 ceil
+        per sample.  Entries at blocks outside ``drop_loc`` are ignored."""
+        cfg = self.cfg
+        self._check_training()
+        tokens = self.embed(x)
+        token_mask = pruning.full_token_mask(x.shape[0], cfg.num_patches, x.device)
+        first = min(cfg.drop_loc) if cfg.drop_loc else cfg.depth
+        for i, blk in enumerate(self.blocks):
+            drop = i in cfg.drop_loc
+            tokens, token_mask = blk.masked_call(
+                tokens, token_mask,
+                keep_rate=float(keep_rates[i]) if drop else None,
+                num_left=num_left[i] if drop and num_left is not None else None,
+                mask_is_full=i <= first,
+                generator=generator,
+            )
+        return self.pool_and_head(tokens, token_mask)
+
+    def forward_hybrid(
+        self,
+        x: torch.Tensor,
+        keep_rates: Sequence[float],
+        *,
+        num_left: Sequence[int],
+        bucket_rates: Sequence[float],
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Hybrid anneal forward (``vit.py:835-897``): each pruning block
+        gathers to the static width of ``bucket_rates`` (the scheduled rates
+        snapped up, ``engine.schedules.bucket_keep_rates``) while the exact
+        kept counts ``num_left`` ride inside it as a prefix mask.  After the
+        first drop block every attention takes the prefix kernel with
+        kv_valid = extra + the last drop block's kept count."""
+        cfg = self.cfg
+        self._check_training()
+        bucket_rates = tuple(float(r) for r in bucket_rates)
+        if len(bucket_rates) != cfg.depth:
+            raise ValueError(
+                f"bucket_rates must have length {cfg.depth}, got "
+                f"{len(bucket_rates)}"
+            )
+        bucket_counts = compose_kept_counts(bucket_rates, cfg.num_patches)
+        tokens = self.embed(x)
+        token_mask = pruning.full_token_mask(x.shape[0], cfg.num_patches, x.device)
+        first = min(cfg.drop_loc) if cfg.drop_loc else cfg.depth
+        prefix = None
+        for i, blk in enumerate(self.blocks):
+            drop = i in cfg.drop_loc
+            tokens, token_mask = blk.masked_call(
+                tokens, token_mask,
+                keep_rate=float(keep_rates[i]) if drop else None,
+                num_left=int(num_left[i]) if drop else None,
+                bucket_k=bucket_counts[i] if drop else None,
+                mask_is_full=i <= first,
+                prefix_len=prefix,
+                generator=generator,
+            )
+            if drop:
+                prefix = int(num_left[i])
+        return self.pool_and_head(tokens, token_mask)

@@ -5,13 +5,15 @@
   ``tpat_tpu.utils.torch_export.audiomae_state_dict`` (pure numpy);
 - ``jax_flat_from_state_dict``: its inverse, as the ``'/'``-joined flat flax
   keys the serving artifact's ``params.npz`` holds;
+- ``jax_flat_grads``: a module's parameter gradients under the same flat
+  flax keys, to hold them against ``jax.grad``'s tree;
 - ``load_pth``: a reference ``.pth``, unwrapped from AudioMAE's
   ``{'model': state_dict}`` envelope.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -54,6 +56,18 @@ def jax_flat_from_state_dict(
         else:
             flat[f"{path}/kernel"] = np.ascontiguousarray(a.T)
     return flat
+
+
+def jax_flat_grads(
+    named_grads: Mapping[str, Optional[torch.Tensor]]
+) -> Dict[str, np.ndarray]:
+    """Gradients by parameter name (``(name, p.grad)`` pairs, or names
+    zipped with ``torch.autograd.grad``'s result) -> flat flax keys, by the
+    key and layout rule of ``jax_flat_from_state_dict``.  Parameters without
+    a gradient (the frozen pos_embed) are left out."""
+    return jax_flat_from_state_dict(
+        {k: g for k, g in named_grads.items() if g is not None}
+    )
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
