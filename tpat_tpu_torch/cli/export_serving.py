@@ -23,7 +23,7 @@ import ast as pyast
 def get_parser():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="audiomae_vit_base",
-                   help="config factory name in tpat_tpu.config")
+                   help="config factory name in tpat_tpu_torch.config")
     p.add_argument("--dataset", default="esc50")
     p.add_argument("--nb_classes", type=int, required=True)
     p.add_argument("--target_length", type=int, default=None)
@@ -77,7 +77,7 @@ def main(args):
             "checkpoints; convert it with tpat-convert (orbax -> pth) first"
         )
 
-    from tpat_tpu import config as cfg_lib
+    from tpat_tpu_torch import config as cfg_lib
     from tpat_tpu_torch.models.vit import AudioViT
     from tpat_tpu_torch.utils import serving
     from tpat_tpu_torch.utils.weights import load_pth

@@ -3,8 +3,9 @@ interface, loaded with ctypes.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 compiles ``tpat_tpu_torch/csrc/<name>.cu`` into ``build/tpat_tpu_torch/`` at
-the repository root.  The library name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.  The
+the repository root.  The library name carries a hash of the source, the
+headers in ``csrc/`` (``*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.  The
 compiler's report (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``.log``.
 
@@ -49,7 +50,10 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this source is already built;
     returns the library's path.  Raises with nvcc's output on failure."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     lib = BUILD_DIR / f"lib{name}.{key[:16]}.so"
     if lib.exists():
         return lib

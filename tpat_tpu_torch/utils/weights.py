@@ -1,14 +1,19 @@
 """Weights across the two packages and the reference ``.pth`` layout.
 
-- ``state_dict_from_jax``: a flax param tree (numpy leaves) -> the AudioMAE
-  state dict, through the JAX package's own exporter
-  ``tpat_tpu.utils.torch_export.audiomae_state_dict`` (pure numpy);
-- ``jax_flat_from_state_dict``: its inverse, as the ``'/'``-joined flat flax
-  keys the serving artifact's ``params.npz`` holds;
+- ``state_dict_from_jax``: a flax AudioViT param tree (numpy leaves) -> the
+  AudioMAE state dict;
+- ``mae_state_dict_from_jax``: flax MAE params -> the reference pretraining
+  model's state dict, which ``models.mae.MaskedAutoencoderViT`` loads;
+- ``jax_flat_from_state_dict``: their inverse, as the ``'/'``-joined flat
+  flax keys (the serving artifact's ``params.npz`` holds these);
 - ``jax_flat_grads``: a module's parameter gradients under the same flat
   flax keys, to hold them against ``jax.grad``'s tree;
 - ``load_pth``: a reference ``.pth``, unwrapped from AudioMAE's
   ``{'model': state_dict}`` envelope.
+
+The exporter helpers are the port's own copies of
+``tpat_tpu/utils/torch_export.py:19-63,85-128`` (pure numpy), so the port
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -18,37 +23,138 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from tpat_tpu.utils.torch_export import audiomae_state_dict
+# the LayerNorm modules of AudioViT and of the MAE (their weight is flax's
+# ``scale``)
+_LAYERNORMS = ("norm1", "norm2", "fc_norm", "norm", "decoder_norm")
 
-_LAYERNORMS = ("norm1", "norm2", "fc_norm")
+
+def _t(x) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32).T)
+
+
+def _linear(dst: Dict, prefix: str, p: Mapping):
+    dst[f"{prefix}.weight"] = _t(p["kernel"])
+    if "bias" in p:
+        dst[f"{prefix}.bias"] = np.asarray(p["bias"], dtype=np.float32)
+
+
+def _layernorm(dst: Dict, prefix: str, p: Mapping):
+    dst[f"{prefix}.weight"] = np.asarray(p["scale"], dtype=np.float32)
+    dst[f"{prefix}.bias"] = np.asarray(p["bias"], dtype=np.float32)
+
+
+def _conv(dst: Dict, prefix: str, p: Mapping):
+    k = np.asarray(p["kernel"], dtype=np.float32)  # (kh, kw, I, O)
+    dst[f"{prefix}.weight"] = np.ascontiguousarray(k.transpose(3, 2, 0, 1))
+    if "bias" in p:
+        dst[f"{prefix}.bias"] = np.asarray(p["bias"], dtype=np.float32)
+
+
+def _block(dst: Dict, prefix: str, p: Mapping):
+    _layernorm(dst, f"{prefix}.norm1", p["norm1"])
+    _layernorm(dst, f"{prefix}.norm2", p["norm2"])
+    _linear(dst, f"{prefix}.attn.qkv", p["attn"]["qkv"])
+    _linear(dst, f"{prefix}.attn.proj", p["attn"]["proj"])
+    _linear(dst, f"{prefix}.mlp.fc1", p["mlp"]["fc1"])
+    _linear(dst, f"{prefix}.mlp.fc2", p["mlp"]["fc2"])
+
+
+def audiomae_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {
+        "cls_token": np.asarray(params["cls_token"], dtype=np.float32),
+        "pos_embed": np.asarray(params["pos_embed"], dtype=np.float32),
+    }
+    _conv(sd, "patch_embed.proj", params["patch_embed"]["proj"])
+    for name, p in params.items():
+        if name.startswith("blocks_"):
+            _block(sd, f"blocks.{int(name.split('_')[1])}", p)
+    if "fc_norm" in params:
+        _layernorm(sd, "fc_norm", params["fc_norm"])
+    if "head" in params:
+        _linear(sd, "head", params["head"])
+    return sd
+
+
+def _swin_v2_cr_block(dst: Dict, prefix: str, p: Mapping):
+    """flax SwinBlock params -> timm SwinTransformerV2CrBlock key layout."""
+    _layernorm(dst, f"{prefix}.norm1", p["norm1"])
+    _layernorm(dst, f"{prefix}.norm2", p["norm2"])
+    _linear(dst, f"{prefix}.attn.qkv", p["attn"]["qkv"])
+    _linear(dst, f"{prefix}.attn.proj", p["attn"]["proj"])
+    dst[f"{prefix}.attn.logit_scale"] = np.asarray(
+        p["attn"]["logit_scale"], dtype=np.float32
+    )
+    _linear(dst, f"{prefix}.attn.meta_mlp.fc1", p["attn"]["meta_fc1"])
+    _linear(dst, f"{prefix}.attn.meta_mlp.fc2", p["attn"]["meta_fc2"])
+    _linear(dst, f"{prefix}.mlp.fc1", p["mlp"]["fc1"])
+    _linear(dst, f"{prefix}.mlp.fc2", p["mlp"]["fc2"])
+
+
+def mae_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """Full MAE (encoder + decoder) flax params -> the reference pretraining
+    model's state_dict layout (``models_mae.py:25-464``)."""
+    sd: Dict[str, np.ndarray] = {
+        "cls_token": np.asarray(params["cls_token"], dtype=np.float32),
+        "pos_embed": np.asarray(params["pos_embed"], dtype=np.float32),
+        "mask_token": np.asarray(params["mask_token"], dtype=np.float32),
+        "decoder_pos_embed": np.asarray(
+            params["decoder_pos_embed"], dtype=np.float32
+        ),
+    }
+    _conv(sd, "patch_embed.proj", params["patch_embed"]["proj"])
+    _layernorm(sd, "norm", params["norm"])
+    _linear(sd, "decoder_embed", params["decoder_embed"])
+    _layernorm(sd, "decoder_norm", params["decoder_norm"])
+    _linear(sd, "decoder_pred", params["decoder_pred"])
+    for name, p in params.items():
+        if name.startswith("blocks_"):
+            _block(sd, f"blocks.{int(name.split('_')[1])}", p)
+        elif name.startswith("decoder_blocks_"):
+            i = int(name.rsplit("_", 1)[1])
+            if "logit_scale" in p["attn"]:
+                _swin_v2_cr_block(sd, f"decoder_blocks.{i}", p)
+            else:
+                _block(sd, f"decoder_blocks.{i}", p)
+    return sd
+
+
+def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax AudioViT params -> tensors ``AudioViT.load_state_dict(strict=
     True)`` takes."""
-    return {
-        k: torch.from_numpy(np.array(v, dtype=np.float32))
-        for k, v in audiomae_state_dict(params).items()
-    }
+    return _tensors(audiomae_state_dict(params))
+
+
+def mae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax MaskedAutoencoderViT params -> tensors
+    ``models.mae.MaskedAutoencoderViT.load_state_dict(strict=True)`` takes."""
+    return _tensors(mae_state_dict(params))
 
 
 def jax_flat_from_state_dict(
     sd: Mapping[str, torch.Tensor]
 ) -> Dict[str, np.ndarray]:
-    """AudioMAE state dict -> flat flax params: ``blocks.3.attn.qkv.weight``
-    becomes ``blocks_3/attn/qkv/kernel`` (transposed), a conv weight
-    (O, I, kh, kw) becomes a (kh, kw, I, O) kernel, a LayerNorm weight its
-    ``scale``."""
+    """AudioMAE or MAE state dict -> flat flax params:
+    ``blocks.3.attn.qkv.weight`` becomes ``blocks_3/attn/qkv/kernel``
+    (transposed), a conv weight (O, I, kh, kw) becomes a (kh, kw, I, O)
+    kernel, a LayerNorm weight its ``scale``; the swin decoder's
+    ``attn.meta_mlp.fc{1,2}`` become ``attn/meta_fc{1,2}`` and its (H,)
+    ``attn.logit_scale`` keeps its name."""
     flat: Dict[str, np.ndarray] = {}
     for key, t in sd.items():
         a = t.detach().to("cpu", torch.float32).numpy()
-        if "." not in key:  # cls_token, pos_embed
+        if "." not in key:  # cls_token, pos_embed, mask_token, ...
             flat[key] = a
             continue
         module, leaf = key.rsplit(".", 1)
-        path = module.replace("blocks.", "blocks_").replace(".", "/")
-        if leaf == "bias":
-            flat[f"{path}/bias"] = a
+        path = (module.replace(".meta_mlp.fc", ".meta_fc")
+                .replace("blocks.", "blocks_").replace(".", "/"))
+        if leaf in ("bias", "logit_scale"):
+            flat[f"{path}/{leaf}"] = a
         elif module.rsplit(".", 1)[-1] in _LAYERNORMS:
             flat[f"{path}/scale"] = a
         elif a.ndim == 4:
@@ -64,7 +170,7 @@ def jax_flat_grads(
     """Gradients by parameter name (``(name, p.grad)`` pairs, or names
     zipped with ``torch.autograd.grad``'s result) -> flat flax keys, by the
     key and layout rule of ``jax_flat_from_state_dict``.  Parameters without
-    a gradient (the frozen pos_embed) are left out."""
+    a gradient (the frozen pos embeds) are left out."""
     return jax_flat_from_state_dict(
         {k: g for k, g in named_grads.items() if g is not None}
     )
