@@ -72,17 +72,45 @@ printing a result:
     timed with CUDA events in turns, beside the library call;
 15. one f32 pretrain step at each grid, the window kernels vs 'xla', from
     the same weights, batch and step generator (the same masks and
-    dropout): the loss and every parameter gradient.
+    dropout): the loss and every parameter gradient;
+16. the LayerNorm kernels (``csrc/layernorm.cu``, built with the others in
+    phase 2) vs plain at M in {1, 7, 515, 4112}, every width of
+    ``ops.layernorm.WIDTHS``, f32 and bf16: forward y, mu, rstd and backward
+    dx, dw, db;
+17. ``use_fused_layernorm=True`` at full width: phase 4's artifact served
+    with the flag (24 LayerNorm launches per bucket forward asserted, each
+    launch's (M, D) recorded) and the ms per b128 forward with the flag and
+    without, in turns; phase 8's five epochs with the flag (24 forward and
+    24 backward launches per step asserted and recorded, none without the
+    flag) and the ms per step with and without, in turns; one f32 train
+    step with the flag vs without in each step variant (loss, gradients,
+    kept tokens);
+18. the LayerNorm kernels vs plain at every geometry recorded in phase 17
+    (each serving bucket's and each training step's); those of the b128
+    forward and the B=128 steps timed in turns beside the bound and
+    ``F.layer_norm``, and the device time of each of the three from
+    ``torch.profiler``;
+19. the probes: P1's six variants (``probes/probe_attn_softmax.py``) vs
+    plain at B=2 (N 33 and 257, f32 and bf16) and B=128 (N 257 and 181),
+    P2's nine geometries (``probes/probe_attn_grouping.py``) at the same
+    shapes in bf16, and P3
+    (``probes/probe_ln_matmul.py``) vs plain, each timed at the probe's
+    shapes; then each probe's ``main()`` with a few iterations (the probes'
+    own path, whose launches are counted);
+20. the kernels line, with the entries ``layernorm_fwd``,
+    ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
+    ``ln_matmul`` beside those of phases 1-15.
 
 Beside each kernel's time the script computes its bound, the least time the
 H100 could take for the same work on these inputs (the larger of the bytes
 the call must move at 3.35 TB/s and the FLOPs its data needs at 989 TFLOP/s
-bf16), and times the one PyTorch call that computes the same function, where
-there is one (``library_ms``; a yardstick that the port never calls).
+bf16, or 67 TFLOP/s for LayerNorm's f32 arithmetic), and times the one
+PyTorch call that computes the same function, where there is one
+(``library_ms``; a yardstick that the port never calls).
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training and pretrain paths), error, times and bound; the last
-is ``{"ok": true, "device": {...}}``.
+the serving, training and pretrain paths, and the probes' mains), error,
+times and bound; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -142,6 +170,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SCALE_CLAMP = 100.0  # exp(min(logit_scale, log 100)): the largest scale
 
+# LayerNorm (phases 16-18): y, mu and rstd within F32_ATOL or BF16_TOL; dx,
+# dw and db within GRAD_*_REL of the tensor's largest |entry| (dw and db are
+# sums over M rows taken in another order)
+LN_EPS = 1e-6  # the configs' layer_norm_eps
+LN_ROWS = (1, 7, 515, 4112)
+LN_STEP_LAUNCHES = (24, 24)  # forward, backward: norm1 and norm2 x 12 blocks
+# probes (phase 19): the unnormalised outputs (noexp, mmonly) within this
+# share of their largest |entry| in f32 (sums of N products of size ~1)
+UNNORM_F32_REL = 1e-5
+PROBE_ITERS = 5  # timed calls per row and repeat of each probe's main()
+
 
 def log(msg):
     print(msg, flush=True)
@@ -164,11 +203,11 @@ def check_device() -> str:
 
 
 def build_kernels():
-    """Phases 2, 6 and 11: one nvcc per source, all started together."""
+    """Phases 2, 6, 11 and 16: one nvcc per source, all started together."""
     from tpat_tpu_torch.ops import _build
 
     names = ("qkv_attention", "qkv_attention_bwd", "window_attention",
-             "window_attention_bwd")
+             "window_attention_bwd", "layernorm", "attn_probe", "ln_matmul")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
@@ -189,6 +228,20 @@ def _close(got, want, atol, rtol) -> float:
             f" (atol {atol}, rtol {rtol})"
         )
     return err.max().item()
+
+
+def _rel_close(got, want, rel, what) -> float:
+    """max |got - want| <= rel * max |want|, for a tensor whose entries are
+    sums over many terms whose sizes reach its largest entry (gradients,
+    LayerNorm's dw and db, unnormalised outputs): the error scales with that
+    entry, and an entrywise rtol would fail on entries near 0.  Returns the
+    max abs err."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if not torch.isfinite(got.float()).all() or not err <= rel * scale:
+        raise AssertionError(f"{what}: kernel vs plain max abs err {err:.3g} "
+                             f"> {rel} x max|plain| {scale:.3g}")
+    return err
 
 
 def _fwd_pair(qa, kv):
@@ -480,7 +533,7 @@ def serving_path(tmp):
     plain_cps = sum(clips["plain"]) / 2
     log(f"serving b128 bf16: {kernel_cps:.1f} clips/s through the kernel, "
         f"{plain_cps:.1f} clips/s through plain attention")
-    return cfg, sd, launches
+    return cfg, sd, launches, out_dir
 
 
 def model_level(cfg, sd):
@@ -540,17 +593,9 @@ def model_level(cfg, sd):
 
 
 def _rel_to_max(got, want, rel, what) -> float:
-    """max |got - want| <= rel * max |want|, for each of dq, dk and dv."""
-    worst = 0.0
-    for g, w, part in zip(got.chunk(3, -1), want.chunk(3, -1), "qkv"):
-        err = (g.float() - w.float()).abs().max().item()
-        scale = w.float().abs().max().item()
-        if not torch.isfinite(g.float()).all() or not err <= rel * scale:
-            raise AssertionError(
-                f"{what} d{part}: kernel vs plain max abs err {err:.3g} > "
-                f"{rel} x max|plain| {scale:.3g}")
-        worst = max(worst, err)
-    return worst
+    """``_rel_close`` for each of dq, dk and dv."""
+    return max(_rel_close(g, w, rel, f"{what} d{part}")
+               for g, w, part in zip(got.chunk(3, -1), want.chunk(3, -1), "qkv"))
 
 
 def _compare_bwd(qa, qkv, d_out, d_scores, h, mode, extra, kv) -> float:
@@ -633,16 +678,16 @@ def _recording(qa, calls):
         qa._forward_kernel, qa._backward_kernels = fwd, bwd
 
 
-def _timed(batches, steps, qa, calls):
-    """Yield the batches, recording each step's ms, launch counts and
-    recorded launches."""
+def _timed(batches, steps, counts, calls):
+    """Yield the batches, recording each step's ms, launch counts (the
+    change of ``counts()``) and recorded launches."""
     for x, y in batches:
         torch.cuda.synchronize()
-        c0, i0, t0 = _counts(qa), len(calls), time.perf_counter()
+        c0, i0, t0 = counts(), len(calls), time.perf_counter()
         yield x, y
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        steps.append((ms, tuple(a - b for a, b in zip(_counts(qa), c0)),
+        steps.append((ms, tuple(a - b for a, b in zip(counts(), c0)),
                       tuple(calls[i0:])))
 
 
@@ -669,6 +714,33 @@ EPOCH_LABELS = ("dense, 2D masking", "anneal, rates 1.0 (dense step)",
 BUCKET_09 = "hybrid at bucket 0.9 (one step, not counted)"
 
 
+def _run_epochs(cfg, tc, sd, batches, counts, calls, what):
+    """Phase 8's five epochs of ``TrainModule.train_epoch`` (two steps each)
+    from the weights ``sd``: each step's (ms, launch counts, recorded
+    launches) and each epoch's loss.  Raises unless the phases are dense,
+    anneal x3, static, the losses finite and the frozen pos_embed
+    unchanged."""
+    from tpat_tpu_torch.engine.train import TrainModule
+
+    mod = TrainModule(cfg, tc, "ce", iters_per_epoch=2, device="cuda")
+    state = mod.load(sd, seed=SEED)
+    steps, phases, losses = [], [], []
+    for epoch in range(5):
+        state, stats = mod.train_epoch(
+            state, _timed(batches, steps, counts, calls), epoch)
+        phases.append(stats["phase"])
+        losses.append(stats["loss"])
+    if not torch.equal(state.model.pos_embed, sd["pos_embed"].to("cuda")):
+        raise AssertionError(f"{what}: the frozen pos_embed moved")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: losses {losses}")
+    if phases != ["dense", "anneal", "anneal", "anneal", "static"]:
+        raise AssertionError(f"{what}: phases {phases}")
+    del state, mod
+    torch.cuda.empty_cache()
+    return steps, losses
+
+
 def training_path(sd):
     """Phase 8: train_epoch at full width through the kernels (the counted
     main path, every launch recorded), then in turns through plain attention
@@ -693,31 +765,17 @@ def training_path(sd):
         raise AssertionError(f"schedule at epochs 2, 3: {sched}")
     batches = profile_train.synthetic_batches(
         cfg, profile_train.TRAIN_BATCH, 2, SEED + 4)
-    pos0 = sd["pos_embed"].to("cuda")
 
     def run(impl, count):
-        c = dataclasses.replace(cfg, attention_impl=impl)
-        mod = TrainModule(c, tc, "ce", iters_per_epoch=2, device="cuda")
-        state = mod.load(sd, seed=SEED)
-        steps, phases, losses, calls = [], [], [], []
+        calls = []
         with _recording(qa, calls):
             if count:
                 qa.launches = qa.prefix_launches = 0  # the main path starts here
                 qa.bwd_rows_launches = qa.bwd_cols_launches = 0
-            for epoch in range(5):
-                state, stats = mod.train_epoch(
-                    state, _timed(batches, steps, qa, calls), epoch)
-                phases.append(stats["phase"])
-                losses.append(stats["loss"])
+            steps, losses = _run_epochs(
+                dataclasses.replace(cfg, attention_impl=impl), tc, sd, batches,
+                lambda: _counts(qa), calls, impl)
             counts = _counts(qa)  # the main path ends here
-        if not torch.equal(state.model.pos_embed, pos0):
-            raise AssertionError(f"{impl}: the frozen pos_embed moved")
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"{impl}: losses {losses}")
-        if phases != ["dense", "anneal", "anneal", "anneal", "static"]:
-            raise AssertionError(f"{impl}: phases {phases}")
-        del state, mod
-        torch.cuda.empty_cache()
         return steps, losses, counts
 
     k_steps, losses, counts = run("fused", True)
@@ -853,10 +911,15 @@ def path_kernels_vs_plain(walks):
     return sums, worst
 
 
-def train_step_f32(sd):
-    """Phase 10: one f32 train step's loss and gradients, kernels vs plain
-    attention, same weights and batch, no drop-path, in each step variant
-    of ``cli/profile_train.py``."""
+ATTENTION_PAIR = ({"attention_impl": "fused"}, {"attention_impl": "xla"})
+LAYERNORM_PAIR = ({"use_fused_layernorm": True}, {"use_fused_layernorm": False})
+
+
+def train_step_f32(sd, pair=ATTENTION_PAIR, what="kernels vs plain attention"):
+    """Phase 10 (and 17 with ``LAYERNORM_PAIR``): one f32 train step's loss
+    and gradients, the config change ``pair[0]`` (kernels) vs ``pair[1]``
+    (plain), same weights and batch, no drop-path, in each step variant of
+    ``cli/profile_train.py``."""
     from tpat_tpu_torch.cli import profile_train
     from tpat_tpu_torch.engine.train import TrainModule
     from tpat_tpu_torch.ops import pruning
@@ -875,17 +938,17 @@ def train_step_f32(sd):
     pruning.topk_select = recording_topk
     try:
         for name, kw in profile_train.step_variants(cfg).items():
-            res = {}
-            for impl in ("fused", "xla"):
-                c = dataclasses.replace(cfg, attention_impl=impl)
+            res = []
+            for change in pair:
+                c = dataclasses.replace(cfg, **change)
                 mod = TrainModule(c, tc, "ce", iters_per_epoch=2, device="cuda")
                 state = mod.load(sd, seed=SEED)
                 picked.clear()
                 loss, grads = mod.loss_and_grads(state, x, y, **kw)
                 names = [n for g in state.optimizer.param_groups
                          for n in g["names"]]
-                res[impl] = (loss.item(), dict(zip(names, grads)), list(picked))
-            (lf, gf, tf), (lx, gx, tx) = res["fused"], res["xla"]
+                res.append((loss.item(), dict(zip(names, grads)), list(picked)))
+            (lf, gf, tf), (lx, gx, tx) = res
             if not abs(lf - lx) <= STEP_LOSS_RTOL * abs(lx):
                 raise AssertionError(f"{name}: loss {lf} vs {lx}")
             drops = 0 if kw["phase"] == "dense" else len(cfg.drop_loc)
@@ -904,8 +967,8 @@ def train_step_f32(sd):
                         f"{name}: grad {k} err {err:.3g} > {GRAD_F32_REL} x "
                         f"{scale:.3g}")
                 worst = max(worst, err / scale if scale else 0.0)
-            log(f"f32 train step, {name}, b{STEP_BATCH_F32}: loss {lf:.6f} vs "
-                f"{lx:.6f} (plain); the same kept tokens at {drops} drop "
+            log(f"f32 train step, {what}, {name}, b{STEP_BATCH_F32}: loss "
+                f"{lf:.6f} vs {lx:.6f} (plain); the same kept tokens at {drops} drop "
                 f"blocks (rows ranked in another order, per block: "
                 f"{reordered}); {len(gx)} parameter gradients, worst err / "
                 f"max|grad| {worst:.3g}")
@@ -1001,15 +1064,7 @@ def _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
     parts = list(zip(("d_q", "d_k", "d_v"), got[0].chunk(3, -1),
                      want[0].chunk(3, -1)))
     parts += [("d_scale", got[1], want[1]), ("d_template", got[2], want[2])]
-    e_bwd = 0.0
-    for name, g, w in parts:
-        err = (g.float() - w.float()).abs().max().item()
-        scale_ = w.float().abs().max().item()
-        if not torch.isfinite(g.float()).all() or not err <= rel * scale_:
-            raise AssertionError(
-                f"{what} {name}: kernel vs plain max abs err {err:.3g} > "
-                f"{rel} x max|plain| {scale_:.3g}")
-        e_bwd = max(e_bwd, err)
+    e_bwd = max(_rel_close(g, w, rel, f"{what} {name}") for name, g, w in parts)
     return e_fwd, e_bwd
 
 
@@ -1275,25 +1330,453 @@ def pretrain_step_f32():
             f"worst err / max|grad| {worst:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-19: the LayerNorm kernels (B4) on the finetune and serving paths,
+# and the probes (P1-P3)
+# ---------------------------------------------------------------------------
+
+
+def _ln_inputs(m, d, dt, gen):
+    """x ~ N(0, 1) in dt, w ~ 1 + N(0, 0.1^2), b ~ N(0, 0.1^2) (f32), dy ~
+    N(0, 1) in dt."""
+    x = torch.randn(m, d, device="cuda", generator=gen).to(dt)
+    w = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    dy = torch.randn(m, d, device="cuda", generator=gen).to(dt)
+    return x, w, b, dy
+
+
+def _compare_ln(ln, x, w, b, dy) -> tuple:
+    """Kernel vs plain on one input, forward (y, mu, rstd) and backward
+    (dx, dw, db from the plain mu and rstd): (forward abs err, backward abs
+    err)."""
+    what = f"layernorm M={x.shape[0]} D={x.shape[1]} {x.dtype}"
+    with torch.no_grad():
+        got = ln.layernorm_fwd(x, w, b, LN_EPS)
+        want = ln.layernorm_fwd_plain(x, w, b, LN_EPS)
+        got_b = ln.layernorm_bwd(x, w, want[1], want[2], dy)
+        want_b = ln.layernorm_bwd_plain(x, w, want[1], want[2], dy)
+    torch.cuda.synchronize()
+    f32 = x.dtype == torch.float32
+    tol = (F32_ATOL, 0.0) if f32 else (BF16_TOL, BF16_TOL)
+    e_fwd = max(_close(g, p, *tol) for g, p in zip(got, want))
+    rel = GRAD_F32_REL if f32 else GRAD_BF16_REL
+    e_bwd = max(_rel_close(g, p, rel, f"{what} {name}")
+                for name, g, p in zip(("dx", "dw", "db"), got_b, want_b))
+    return e_fwd, e_bwd
+
+
+def layernorm_vs_plain() -> dict:
+    """Phase 16: the LayerNorm kernels vs their plain versions at
+    M in LN_ROWS, every width of ``ops.layernorm.WIDTHS``, f32 and bf16."""
+    from tpat_tpu_torch.ops import layernorm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    count = 0
+    for m in LN_ROWS:
+        for d in ln.WIDTHS:
+            for dt in (torch.float32, torch.bfloat16):
+                ef, eb = _compare_ln(ln, *_ln_inputs(m, d, dt, gen))
+                worst = {"fwd": max(worst["fwd"], ef),
+                         "bwd": max(worst["bwd"], eb)}
+                count += 1
+    log(f"layernorm kernels vs plain, {count} cases (M {list(LN_ROWS)}, D "
+        f"{list(ln.WIDTHS)}, f32 and bf16): worst abs err forward "
+        f"{worst['fwd']:.3g}, backward {worst['bwd']:.3g}")
+    return worst
+
+
+@contextlib.contextmanager
+def _ln_recording(ln, calls):
+    """Route the LayerNorm kernel launchers through a recorder: each launch
+    appends (kind, M, D, dtype).  They still count."""
+    fwd, bwd = ln._forward_kernel, ln._backward_kernel
+
+    def forward(x2, w, b, eps):
+        calls.append(("lnfwd", *x2.shape, x2.dtype))
+        return fwd(x2, w, b, eps)
+
+    def backward(x2, w, mu, rstd, dy):
+        calls.append(("lnbwd", *x2.shape, x2.dtype))
+        return bwd(x2, w, mu, rstd, dy)
+
+    ln._forward_kernel, ln._backward_kernel = forward, backward
+    try:
+        yield
+    finally:
+        ln._forward_kernel, ln._backward_kernel = fwd, bwd
+
+
+def layernorm_serving(cfg, out_dir) -> tuple:
+    """Phase 17, serving: the artifact of phase 4 loaded with
+    ``use_fused_layernorm=True`` answers the same requests, 24 LayerNorm
+    launches per bucket forward (counted and recorded); then ms per b128
+    forward with the flag and without, in turns (off, on, on, off).
+    Returns (launches, every recorded launch of every bucket, one b128
+    forward's recorded launches)."""
+    from tpat_tpu_torch.ops import layernorm as ln
+    from tpat_tpu_torch.utils.serving import load_forward
+
+    on, _ = load_forward(out_dir, device="cuda", cfg=dataclasses.replace(
+        cfg, use_fused_layernorm=True))
+    off, _ = load_forward(out_dir, device="cuda", cfg=cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    requests = {n: torch.randn(n, 1, 512, 128, device="cuda", generator=gen)
+                for n in REQUESTS}
+    calls, walk = [], None
+    torch.cuda.synchronize()
+    with _ln_recording(ln, calls):
+        ln.launches = ln.bwd_launches = 0  # the main path starts here
+        for n, x in requests.items():
+            i0 = len(calls)
+            y = on(x)
+            torch.cuda.synchronize()
+            forwards = math.ceil(n / BUCKETS[-1])
+            if len(calls) - i0 != 24 * forwards:
+                raise AssertionError(
+                    f"request of {n}: {len(calls) - i0} layernorm launches, "
+                    f"expected {24 * forwards} ({forwards} bucket forwards x "
+                    "12 blocks x 2)")
+            if y.shape != (n, 50) or not torch.isfinite(y).all():
+                raise AssertionError(f"request of {n}: bad logits")
+            if n == BUCKETS[-1]:
+                walk = tuple(calls[i0:])
+        launches = ln.launches  # the main path ends here
+    if walk is None:
+        raise AssertionError(f"no request filled the b{BUCKETS[-1]} bucket")
+    if ln.bwd_launches or launches != len(calls):
+        raise AssertionError(f"serving: {launches} forward and "
+                             f"{ln.bwd_launches} backward layernorm launches, "
+                             f"{len(calls)} recorded")
+    x = requests[128]
+    ms = {}
+    for name, f in (("off", off), ("on", on), ("on", on), ("off", off)):
+        ms.setdefault(name, []).append(_time_ms(lambda: f(x), iters=10))
+    on_ms, off_ms = sum(ms["on"]) / 2, sum(ms["off"]) / 2
+    log(f"serving with use_fused_layernorm: {launches} layernorm launches "
+        f"(24 per bucket forward); b128 bf16 forward {on_ms:.3f} ms with the "
+        f"flag, {off_ms:.3f} ms without ({128 / on_ms * 1e3:.1f} vs "
+        f"{128 / off_ms * 1e3:.1f} clips/s; turns {ms})")
+    return launches, tuple(calls), walk
+
+
+def layernorm_training(sd) -> tuple:
+    """Phase 17, training: phase 8's five epochs with
+    ``use_fused_layernorm=True``, 24 forward and 24 backward LayerNorm
+    launches per step asserted and every launch's (M, D) recorded (the
+    counted main path); then in turns without the flag (asserting no
+    launch), with it, with it, without, for the ms per step.  Returns
+    ((forward, backward) launches, {epoch label: one step's launches})."""
+    from tpat_tpu_torch.cli import profile_train
+    from tpat_tpu_torch.ops import layernorm as ln
+
+    cfg, tc = _train_configs("bfloat16", 0.1)
+    batches = profile_train.synthetic_batches(
+        cfg, profile_train.TRAIN_BATCH, 2, SEED + 4)
+
+    def counts():
+        return ln.launches, ln.bwd_launches
+
+    def run(flag, count):
+        calls = []
+        with _ln_recording(ln, calls):
+            if count:
+                ln.launches = ln.bwd_launches = 0  # the main path starts here
+            steps, losses = _run_epochs(
+                dataclasses.replace(cfg, use_fused_layernorm=flag), tc, sd,
+                batches, counts, calls, f"use_fused_layernorm={flag}")
+            total = counts()  # the main path ends here
+        want = LN_STEP_LAUNCHES if flag else (0, 0)
+        for i, (_, got, _) in enumerate(steps):
+            if got != want:
+                raise AssertionError(
+                    f"use_fused_layernorm={flag}, step {i}: layernorm "
+                    f"launches (fwd, bwd) {got}, expected {want}")
+        return steps, losses, total
+
+    steps, losses, launches = run(True, True)
+    walks = {label: steps[2 * i][2] for i, label in enumerate(EPOCH_LABELS)}
+    log(f"training with use_fused_layernorm: losses per epoch "
+        f"{[round(v, 4) for v in losses]}; layernorm launches (fwd, bwd) "
+        f"{LN_STEP_LAUNCHES} per step as expected, totals {launches}")
+    off1, _, _ = run(False, False)
+    on1, _, _ = run(True, False)
+    on2, _, _ = run(True, False)
+    off2, _, _ = run(False, False)
+    for epoch, label in enumerate(EPOCH_LABELS):
+        k = [s[2 * epoch + 1][0] for s in (on1, on2)]
+        p = [s[2 * epoch + 1][0] for s in (off1, off2)]
+        log(f"train step b128 bf16, epoch {epoch} ({label}): "
+            f"use_fused_layernorm {sum(k) / 2:.1f} ms, plain LayerNorm "
+            f"{sum(p) / 2:.1f} ms (second steps {[round(v, 1) for v in k]} / "
+            f"{[round(v, 1) for v in p]})")
+    return launches, walks
+
+
+def layernorm_library(x, w, b, dy=None):
+    """The yardstick, as a call: ``F.layer_norm`` on the f32 cast followed
+    by the cast to x's dtype (the function the kernel computes), or with
+    ``dy`` its autograd backward alone.  The port never calls it."""
+    d = x.shape[-1]
+    if dy is None:
+        return lambda: F.layer_norm(x.float(), (d,), w, b, LN_EPS).to(x.dtype)
+    xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+    out = F.layer_norm(xr.float(), (d,), wr, br, LN_EPS).to(x.dtype)
+    return lambda: torch.autograd.grad(out, (xr, wr, br), dy, retain_graph=True)
+
+
+def _device_ms(fn, iters=20) -> float:
+    """Device ms per call of ``fn``: the summed durations of the CUDA kernels
+    it launches over ``iters`` calls (``torch.profiler``), without the
+    host's gaps between them.  For calls of a few tens of microseconds,
+    whose CUDA-event times include the host's launch rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpat_tpu_torch.cli.profile_forward import kernel_rows
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r["device_ms"] for r in kernel_rows(prof, iters))
+
+
+def ln_work(m, d, itemsize, bwd) -> tuple:
+    """(bytes, f32 operations) a LayerNorm forward or backward needs: x read
+    and y written (the backward reads x and dy and writes dx), mu and rstd
+    (f32) written or read, the (D,) f32 parameters read and, backward, dw
+    and db written.  About 8 operations per element forward, 12 backward."""
+    if bwd:
+        return 3 * m * d * itemsize + 8 * m + 12 * d, 12 * m * d
+    return 2 * m * d * itemsize + 8 * m + 8 * d, 8 * m * d
+
+
+def layernorm_at_path(geometries, timed) -> tuple:
+    """Phase 18: each recorded LayerNorm geometry (every serving bucket and
+    training step), kernel vs plain on a seeded input; those in ``timed``
+    (B=128) then both timed with CUDA events in turns (each call through its
+    wrapper), beside the bound and the library call, and the device time of
+    each of the three (``_device_ms``).  Returns ({timed geometry: (ms,
+    plain ms, library ms, bound, device ms of the three)}, worst abs err)."""
+    from tpat_tpu_torch.ops import layernorm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    per, worst = {}, 0.0
+    timed = set(timed)
+    for call in sorted(set(geometries) | timed, key=str):
+        kind, m, d, dt = call
+        x, w, b, dy = _ln_inputs(m, d, dt, gen)
+        ef, eb = _compare_ln(ln, x, w, b, dy)
+        bwd = kind == "lnbwd"
+        worst = max(worst, eb if bwd else ef)
+        if call not in timed:
+            continue
+        _, mu, rstd = ln.layernorm_fwd_plain(x, w, b, LN_EPS)
+        if bwd:
+            kern = lambda: ln.layernorm_bwd(x, w, mu, rstd, dy)  # noqa: E731
+            plain = lambda: ln.layernorm_bwd_plain(x, w, mu, rstd, dy)  # noqa: E731
+        else:
+            kern = lambda: ln.layernorm_fwd(x, w, b, LN_EPS)  # noqa: E731
+            plain = lambda: ln.layernorm_fwd_plain(x, w, b, LN_EPS)  # noqa: E731
+        library = layernorm_library(x, w, b, dy if bwd else None)
+        with torch.no_grad():
+            k, p = _turns(kern, plain)
+            dev = [_device_ms(f) for f in (kern, plain)]
+        with torch.no_grad() if not bwd else contextlib.nullcontext():
+            lib = _time_ms(library)
+            dev.append(_device_ms(library))
+        nbytes, ops = ln_work(m, d, x.element_size(), bwd)
+        bnd = bound_ms(nbytes, ops, torch.float32)
+        per[call] = (k, p, lib, bnd, tuple(dev))
+        log(f"layernorm {'bwd' if bwd else 'fwd'} M={m} D={d} {dt}: kernel "
+            f"{k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); device time kernel {dev[0]:.4f}, "
+            f"plain {dev[1]:.4f}, library {dev[2]:.4f} ms; abs err "
+            f"{eb if bwd else ef:.3g}")
+    log(f"layernorm kernels vs plain at {len(set(geometries) | timed)} "
+        f"recorded geometries ({len(timed)} timed): worst abs err {worst:.3g}")
+    return per, worst
+
+
+DEVICE_KEYS = ("device_ms", "plain_device_ms", "library_device_ms")
+
+
+def _sum_walk(per, walk) -> dict:
+    """A walk's per-call times summed: ms, plain_ms, library_ms, bound and
+    the three device times."""
+    s = dict.fromkeys(("ms", "plain_ms", "library_ms") + DEVICE_KEYS, 0.0)
+    s["bound"] = {}
+    for call in walk:
+        k, p, lib, (bms, by), dev = per[call]
+        for key, v in zip(("ms", "plain_ms", "library_ms") + DEVICE_KEYS,
+                          (k, p, lib) + dev):
+            s[key] += v
+        s["bound"][by] = s["bound"].get(by, 0.0) + bms
+    return s
+
+
+def ln_matmul_library_ms(x, g, b, w) -> float:
+    """The yardstick: ms per call, by CUDA events, of ``F.layer_norm`` (f32
+    statistics, cast to x's dtype) followed by ``torch.matmul``.  The port
+    never calls it."""
+    with torch.no_grad():
+        return _time_ms(lambda: torch.matmul(F.layer_norm(
+            x.float(), (x.shape[1],), g, b, LN_EPS).to(x.dtype), w))
+
+
+def _compare_variant(p1, qkv, variant) -> float:
+    """P1 kernel vs plain on one input: out within F32_ATOL (f32) or
+    BF16_TOL for the normalised variants, within UNNORM_F32_REL or
+    GRAD_BF16_REL of the largest |entry| for noexp and mmonly; colsum within
+    the score tolerance for 'full' and exactly zero otherwise."""
+    what = f"P1 {variant} B={qkv.shape[0]} N={qkv.shape[1]} {qkv.dtype}"
+    with torch.no_grad():
+        out, colsum = p1.variant_attention(qkv, variant)
+        pout, pcol = p1.variant_attention_plain(qkv, variant)
+    torch.cuda.synchronize()
+    f32 = qkv.dtype == torch.float32
+    if variant in ("noexp", "mmonly"):
+        err = _rel_close(out, pout, UNNORM_F32_REL if f32 else GRAD_BF16_REL,
+                         what)
+    else:
+        err = (_close(out, pout, F32_ATOL, 0.0) if f32
+               else _close(out, pout, BF16_TOL, BF16_TOL))
+    if variant == "full":
+        err = max(err, _close(colsum, pcol, SCORE_ATOL, SCORE_RTOL))
+    elif colsum.shape != pcol.shape or colsum.any():
+        raise AssertionError(f"{what}: colsum is not zero")
+    return err
+
+
+def probe_work(b, n, itemsize, variant) -> tuple:
+    """(bytes, FLOPs) of one P1/P2 call at C = 768, H = 12: qkv read, out
+    written, the f32 colsum written for 'full'; 4 N^2 D FLOPs per (sample,
+    head)."""
+    nbytes = itemsize * b * n * 4 * 768 + (4 * b * 12 * n if variant == "full"
+                                           else 0)
+    return nbytes, 4 * b * 12 * n * n * 64
+
+
+def probes_vs_plain() -> tuple:
+    """Phase 19: P1's six variants vs plain at B=2 (N 33 and 257, f32 and
+    bf16) and B=128 (N 257 and 181, bf16); P2's nine geometries vs plain at
+    B=2 (N 33 and 257) and B=128 (N 257 and 181), bf16; P3 vs plain at M = 100 (f32
+    and bf16) and at the probe's M, K, N (bf16).  Then each at the probe's
+    shapes (B=128, N=257; P3's M, K, N), kernel and plain timed in turns
+    beside the bound and the library call.  Returns ({probe: worst abs
+    err}, {probe: times})."""
+    from tpat_tpu_torch.probes import probe_attn_grouping as p2
+    from tpat_tpu_torch.probes import probe_attn_softmax as p1
+    from tpat_tpu_torch.probes import probe_ln_matmul as p3
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    bf16 = torch.bfloat16
+    worst = {"P1": 0.0, "P2": 0.0, "P3": 0.0}
+    inputs = {}
+    for b, n, dt in ((2, 33, torch.float32), (2, 33, bf16),
+                     (2, 257, torch.float32), (2, 257, bf16), (128, 257, bf16),
+                     (128, 181, bf16)):
+        qkv = torch.randn(b, n, 3 * p1.C, device="cuda", generator=gen).to(dt)
+        inputs[b, n, dt] = qkv
+        for variant in p1.VARIANTS:
+            worst["P1"] = max(worst["P1"], _compare_variant(p1, qkv, variant))
+        if dt == bf16:
+            with torch.no_grad():
+                want = p2.grouped_attention_plain(qkv)
+                for rows in p2.ROWS:
+                    for heads in p2.HEADS:
+                        got = p2.grouped_attention(qkv, rows, heads)
+                        worst["P2"] = max(worst["P2"], _close(
+                            got, want, BF16_TOL, BF16_TOL))
+    for m, k, n, dt in ((100, 768, 256, torch.float32), (100, 768, 256, bf16),
+                        (p3.M, p3.K, p3.N, bf16)):
+        x, g, b, w = p3.inputs(SEED + 13, m, k, n, dt)
+        with torch.no_grad():
+            got, want = p3.ln_matmul(x, g, b, w), p3.ln_matmul_plain(x, g, b, w)
+        torch.cuda.synchronize()
+        tol = (F32_ATOL, F32_ATOL) if dt == torch.float32 else (BF16_TOL, BF16_TOL)
+        worst["P3"] = max(worst["P3"], _close(got, want, *tol))
+    log("probes vs plain: 36 P1 cases (6 variants), 36 P2 cases (9 "
+        "geometries), 3 P3 cases: worst abs err " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+
+    times = {}
+    qkv = inputs[128, 257, bf16]
+    attention = library_ms("qkv", qkv, p1.H)  # softmax attention, no scores
+    for variant in p1.VARIANTS:
+        with torch.no_grad():
+            k, p = _turns(lambda: p1.variant_attention(qkv, variant),
+                          lambda: p1.variant_attention_plain(qkv, variant))
+        times[f"P1 {variant}"] = (
+            k, p, attention if variant == "noscore" else None,
+            bound_ms(*probe_work(128, 257, 2, variant), bf16))
+    with torch.no_grad():
+        plain = _time_ms(lambda: p2.grouped_attention_plain(qkv))
+        for rows in p2.ROWS:
+            for heads in p2.HEADS:
+                k = _time_ms(lambda: p2.grouped_attention(qkv, rows, heads))
+                times[f"P2 {rows} rows, {heads} heads"] = (
+                    k, plain, attention,
+                    bound_ms(*probe_work(128, 257, 2, None), bf16))
+    x, g, b, w = p3.inputs(SEED + 13, p3.M, p3.K, p3.N, bf16)
+    with torch.no_grad():
+        k, p = _turns(lambda: p3.ln_matmul(x, g, b, w),
+                      lambda: p3.ln_matmul_plain(x, g, b, w))
+    m, kk, n = p3.M, p3.K, p3.N
+    times["P3"] = (k, p, ln_matmul_library_ms(x, g, b, w),
+                   bound_ms(2 * (m * kk + kk * n + m * n) + 8 * kk,
+                            2 * m * kk * n, bf16))
+    for key, (k, p, lib, (bms, by)) in times.items():
+        log(f"{key} at the probe's shapes: kernel {k:.4f} ms, plain {p:.4f} "
+            f"ms, library {lib} ms, bound {bms:.4f} ms ({by})")
+    return worst, times
+
+
+def probe_mains() -> dict:
+    """Phase 19, the probes' main path: each probe's ``main()`` once with
+    PROBE_ITERS timed calls per row; returns each probe's launches."""
+    from tpat_tpu_torch.probes import probe_attn_grouping as p2
+    from tpat_tpu_torch.probes import probe_attn_softmax as p1
+    from tpat_tpu_torch.probes import probe_ln_matmul as p3
+
+    p1.launches = p2.launches = p3.launches = 0  # the main path starts here
+    for probe in (p1, p2, p3):
+        probe.main(iters=PROBE_ITERS)
+    launches = {"P1": p1.launches, "P2": p2.launches, "P3": p3.launches}
+    log(f"probe mains: launches {launches}")  # the main path ended above
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a probe launched no kernel: {launches}")
+    return launches
+
+
 def _entry(name, source, replaces, launches, err, ms, plain, bound, lib,
            per, **extra):
-    """One kernel's record in the kernels line."""
+    """One kernel's record in the kernels line; ``replaces`` is the TPU
+    kernel's repo-relative file:line."""
     bms, by = bound
     return {"name": name, "route": "cuda",
             "source": "tpat_tpu_torch/csrc/" + source,
-            "replaces": "tpat_tpu/ops/" + replaces, "launches": launches,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib, "per": per,
             **extra}
 
 
 def main():
+    with tempfile.TemporaryDirectory() as tmp:
+        run_phases(tmp)
+
+
+def run_phases(tmp):
     smi = check_device()
     build_kernels()
     grid_err = kernel_vs_plain()
     ms, plain_ms, timed_err, serve_bound = time_kernel()
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg, sd, serve_launches = serving_path(tmp)
+    cfg, sd, serve_launches, out_dir = serving_path(tmp)
     if serve_launches == 0:
         raise AssertionError("the serving path launched no qkv_attention kernel")
     model_level(cfg, sd)
@@ -1307,6 +1790,15 @@ def main():
     pre_counts, pre_walks, _ = pretrain_path()
     pre_sums, pre_err = pretrain_kernels_vs_plain(pre_walks)
     pretrain_step_f32()
+    ln_err = layernorm_vs_plain()
+    ln_serve_launches, serve_calls, serve_walk = layernorm_serving(cfg, out_dir)
+    ln_train_launches, ln_walks = layernorm_training(sd)
+    train_step_f32(sd, LAYERNORM_PAIR, "fused vs plain LayerNorm")
+    ln_per, ln_path_err = layernorm_at_path(
+        serve_calls,
+        [c for walk in (serve_walk, *ln_walks.values()) for c in walk])
+    probe_err, probe_times = probes_vs_plain()
+    probe_launches = probe_mains()
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
     window_launches = {"B5 fwd": esc50[3], "B6 fwd": audioset[4],
@@ -1315,7 +1807,7 @@ def main():
         raise AssertionError(f"window kernel launches {window_launches}")
     step = sums[EPOCH_LABELS[3]]
     per_step = "one b128 bf16 hybrid train step at bucket 0.8"
-    bwd = "pallas_attention.py:366"
+    bwd = "tpat_tpu/ops/pallas_attention.py:366"
     bwd_note = ("plain_ms, bound_ms and library_ms are of the whole backward, "
                 "which the rows and cols kernels compute together; pair_ms is "
                 "both kernels through fused_qkv_attention_bwd")
@@ -1324,7 +1816,7 @@ def main():
               lib=step["B3lib"], per=per_step, pair_ms=step["B3"][2],
               note=bwd_note)
     kernels = [
-        _entry("qkv_attention_fwd", "qkv_attention.cu", "pallas_attention.py:121",
+        _entry("qkv_attention_fwd", "qkv_attention.cu", "tpat_tpu/ops/pallas_attention.py:121",
                serve_launches + train_launches[0] + audioset[0] + esc50[0],
                max(grid_err, timed_err, path_err["B1"], pre_err["B1"]),
                ms, plain_ms, bound_of(serve_bound), None,
@@ -1333,7 +1825,7 @@ def main():
                     "library call computes; the 7 without scores are timed "
                     "against the library call in phase 3"),
         _entry("qkv_attention_prefix_fwd", "qkv_attention.cu",
-               "pallas_attention.py:121", train_launches[1],
+               "tpat_tpu/ops/pallas_attention.py:121", train_launches[1],
                max(prefix_err, path_err["B2"]), step["B2"][0], step["B2"][1],
                bound_of(step["B2bound"]), step["B2lib"], per_step),
         _entry("qkv_attention_bwd_rows", "qkv_attention_bwd.cu", bwd,
@@ -1347,13 +1839,13 @@ def main():
     ]
     for name, key, grid, replaces in (
             ("window_attention_fwd", "B5 fwd", "ESC-50",
-             "pallas_window_attention.py:457"),
+             "tpat_tpu/ops/pallas_window_attention.py:457"),
             ("window_attention_bwd", "B5 bwd", "ESC-50",
-             "pallas_window_attention.py:491"),
+             "tpat_tpu/ops/pallas_window_attention.py:491"),
             ("window_attention_banded_fwd", "B6 fwd", "AudioSet",
-             "pallas_window_attention.py:457"),
+             "tpat_tpu/ops/pallas_window_attention.py:457"),
             ("window_attention_banded_bwd", "B6 bwd", "AudioSet",
-             "pallas_window_attention.py:222")):
+             "tpat_tpu/ops/pallas_window_attention.py:222")):
         e = pre_sums[grid][key]
         source = ("window_attention.cu" if key.endswith("fwd")
                   else "window_attention_bwd.cu")
@@ -1363,6 +1855,50 @@ def main():
             bound_of(e["bound"]), e["library_ms"],
             f"one b{PRETRAIN_BATCH} bf16 MAE pretrain step at the {grid} grid "
             f"({e['calls']} calls)"))
+    ln_fwd = _sum_walk(ln_per, serve_walk)
+    ln_bwd = _sum_walk(ln_per, [c for c in ln_walks[EPOCH_LABELS[4]]
+                                if c[0] == "lnbwd"])
+    for name, line, launches, err, e, per in (
+            ("layernorm_fwd", 41, ln_serve_launches + ln_train_launches[0],
+             max(ln_err["fwd"], ln_path_err), ln_fwd,
+             "one b128 bf16 serving forward (24 calls)"),
+            ("layernorm_bwd", 53, ln_train_launches[1],
+             max(ln_err["bwd"], ln_path_err), ln_bwd,
+             "one b128 bf16 static train step (24 calls)")):
+        kernels.append(_entry(
+            name, "layernorm.cu", f"tpat_tpu/ops/pallas_layernorm.py:{line}",
+            launches, err, e["ms"], e["plain_ms"], bound_of(e["bound"]),
+            e["library_ms"], per, **{k: e[k] for k in DEVICE_KEYS},
+            note="ms, plain_ms and library_ms by CUDA events around each "
+                 "call's wrapper, which for calls of tens of microseconds "
+                 "include the host's launch rate; the *device_ms fields are "
+                 "the summed kernel durations of the same calls "
+                 "(torch.profiler)"))
+
+    def probe_entry(name, source, replaces, key, err_key, per, **extra):
+        k, p, lib, bnd = probe_times[key]
+        return _entry(name, source, replaces, probe_launches[err_key],
+                      probe_err[err_key], k, p, bnd, lib, per, **extra)
+
+    def rows(prefix):
+        return {key[len(prefix):]: {"ms": k, "plain_ms": p, "library_ms": lib,
+                                    "bound_ms": bnd[0]}
+                for key, (k, p, lib, bnd) in probe_times.items()
+                if key.startswith(prefix)}
+
+    at = "one call at B=128, N=257, bf16"
+    kernels += [
+        probe_entry("attn_probe_variants", "attn_probe.cu",
+                    "scripts/probe_attn_softmax.py:42", "P1 full", "P1",
+                    f"{at}, variant full", variants=rows("P1 ")),
+        probe_entry("attn_probe_grouped", "attn_probe.cu",
+                    "scripts/probe_attn_grouping.py:32", "P2 64 rows, 1 heads",
+                    "P2", f"{at}, 64 query rows and 1 head per CTA",
+                    geometries=rows("P2 ")),
+        probe_entry("ln_matmul", "ln_matmul.cu",
+                    "scripts/probe_ln_matmul.py:41", "P3", "P3",
+                    "one call at M=32896, K=768, N=2304, bf16"),
+    ]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,10 @@ MODULES = (
     "tpat_tpu_torch.cli.export_serving, tpat_tpu_torch.cli.profile_forward, "
     "tpat_tpu_torch.cli.profile_train, tpat_tpu_torch.cli.profile_pretrain, "
     "tpat_tpu_torch.engine.train, tpat_tpu_torch.engine.optimizer, "
-    "tpat_tpu_torch.engine.schedules, tpat_tpu_torch.engine.pretrain"
+    "tpat_tpu_torch.engine.schedules, tpat_tpu_torch.engine.pretrain, "
+    "tpat_tpu_torch.ops.layernorm, tpat_tpu_torch.probes.probe_attn_softmax, "
+    "tpat_tpu_torch.probes.probe_attn_grouping, "
+    "tpat_tpu_torch.probes.probe_ln_matmul, tpat_tpu_torch.probes._bench"
 )
 FORBIDDEN = ("jax", "flax", "tpat_tpu")  # top-level package names
 LIBRARY_ATTENTION = "scaled_dot_product_attention"
@@ -51,7 +54,11 @@ def test_import_needs_no_triton_or_nvcc():
         "assert s.shape == (1, 2) and qa.launches == 0; "
         "o = wa.fused_window_attention(torch.zeros(1, 64, 384), "
         "torch.ones(4), torch.zeros(4, 64, 64)); "
-        "assert o.shape == (1, 64, 128) and wa.launches == 0",
+        "assert o.shape == (1, 64, 128) and wa.launches == 0; "
+        "import tpat_tpu_torch.ops.layernorm as ln; "
+        "y = ln.fused_layernorm(torch.zeros(2, 3, 768), torch.ones(768), "
+        "torch.zeros(768)); "
+        "assert y.shape == (2, 3, 768) and ln.launches == ln.bwd_launches == 0",
         env=env,
     )
     assert proc.returncode == 0, proc.stderr

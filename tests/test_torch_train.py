@@ -248,7 +248,8 @@ def _jax_run(cfg, tc, params, batches, epochs):
 
 
 def _port_run(cfg, tc, params, batches, epochs):
-    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=len(batches))
+    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=len(batches),
+                            device="cpu")
     state = mod.load(state_dict_from_jax(params))
     out = []
     for epoch in range(epochs):
@@ -287,7 +288,7 @@ def test_train_phases_and_loss_decreases():
     tc = _tc(epochs=6, blr=2e-3, base_keep_rate=0.6, drop_loc=(1,),
              mask_t_prob=0.2, mask_f_prob=0.2)
     batches = _batches(cfg, 4, 8, seed=0)
-    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=4)
+    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=4, device="cpu")
     state = mod.init()
     pos0 = state.model.pos_embed.detach().clone()
     phases, losses = [], []
@@ -307,7 +308,7 @@ def test_nan_abort_via_device_flag():
     and at the epoch's end when no check interval fires."""
     cfg = _cfg()
     tc = _tc(epochs=1, warmup_epochs=0, base_keep_rate=1.0)
-    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=2)
+    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=2, device="cpu")
     batches = _batches(cfg, 2, 4, seed=1)
     bad = batches[0][0].copy()
     bad[0, 0, 0, 0] = np.nan
@@ -321,7 +322,7 @@ def test_nan_abort_via_device_flag():
 def test_log_points_report_window_means():
     cfg = _cfg()
     tc = _tc(epochs=1, warmup_epochs=0, base_keep_rate=1.0)
-    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=4)
+    mod = train.TrainModule(cfg, tc, "ce", iters_per_epoch=4, device="cpu")
     lines = []
     state, stats = mod.train_epoch(mod.init(), _batches(cfg, 4, 4, seed=2), 0,
                                    log_every=2, log_fn=lines.append)
@@ -332,11 +333,12 @@ def test_log_points_report_window_means():
 def test_engine_refuses_what_is_not_ported():
     cfg = _cfg()
     with pytest.raises(ValueError, match="anneal_mode"):
-        train.TrainModule(cfg, _tc(anneal_mode="linear"), "ce", 2)
+        train.TrainModule(cfg, _tc(anneal_mode="linear"), "ce", 2, device="cpu")
     with pytest.raises(ValueError, match="drop_loc"):
-        train.TrainModule(cfg, _tc(drop_loc=(2,)), "ce", 2)
+        train.TrainModule(cfg, _tc(drop_loc=(2,)), "ce", 2, device="cpu")
     with pytest.raises(NotImplementedError, match="AST"):
-        train.TrainModule(cfg, _tc(optimizer="ast_adam"), "ce", 2).init()
+        train.TrainModule(cfg, _tc(optimizer="ast_adam"), "ce", 2,
+                          device="cpu").init()
 
 
 def test_profile_train_help_needs_cuda_and_its_steps_run():
@@ -357,7 +359,8 @@ def test_profile_train_help_needs_cuda_and_its_steps_run():
         with pytest.raises(SystemExit, match="CUDA"):
             profile_train.cli([])
     cfg = _cfg(base_keep_rate=0.7)
-    mod = train.TrainModule(cfg, _tc(base_keep_rate=0.7), "ce", 2)
+    mod = train.TrainModule(cfg, _tc(base_keep_rate=0.7), "ce", 2,
+                            device="cpu")
     state = mod.init()
     acc = mod._zero_acc()
     (x, y), = profile_train.synthetic_batches(cfg, 2, 1, seed=4, device="cpu")

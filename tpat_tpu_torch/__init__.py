@@ -4,13 +4,15 @@ The JAX package ``tpat_tpu`` stays the reference; this package mirrors its
 module names with PyTorch inside and replaces each Pallas TPU kernel with a
 kernel written by hand for Hopper (``csrc/``, built with nvcc at first use).
 
-Ported so far: the static-pruned eval forward of the AudioMAE-flavour ViT
-(``models.vit.AudioViT``), its serving export (``utils.serving``,
-``cli.export_serving``) and the fused packed-qkv attention kernel
-(``ops.qkv_attention``).
+Ported so far: the AudioMAE-flavour ViT (``models.vit.AudioViT``: static,
+masked and hybrid forwards) with its serving export (``utils.serving``,
+``cli.export_serving``) and training engine (``engine.train``), MAE
+pretraining (``models.mae``, ``engine.pretrain``), the kernels of those
+paths (``ops.qkv_attention``, ``ops.window_attention``, ``ops.layernorm``)
+and the kernel probes (``probes``).
 
-The package never imports ``jax``; configuration comes from the pure-Python
-``tpat_tpu.config``.
+The package never imports ``jax`` nor any module of ``tpat_tpu``: its
+configuration is its own copy (``config``).
 """
 
 from tpat_tpu_torch.config import (  # noqa: F401

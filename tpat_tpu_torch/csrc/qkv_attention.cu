@@ -49,44 +49,18 @@
 // Plain FMA loops, no tensor cores: the first port is right and simple;
 // mma/wgmma tiles are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
 #include <cstddef>
 
+#include "qkv_attention_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kBQ = 64;  // query rows per CTA
 constexpr int kBK = 64;  // keys per streamed tile
 constexpr int kModeNone = 0;
 constexpr int kModePatchMean = 1;
 constexpr int kModeCls = 2;
-
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-  }
-  // p is cast to v's dtype before p.v, as in the JAX kernel
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-};
 
 // Shared-memory layout in floats.
 template <int D>
@@ -101,66 +75,6 @@ struct Smem {
   static constexpr int kFloats = kRed + 4 * kBK;
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
-
-// Rows [r0, r0 + rows) of one head's section into shared memory as f32;
-// rows past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          size_t row_stride, int r0, int rows,
-                                          int n) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int row = r0 + r;
-    dst[r * ld + d] =
-        row < n ? Io<T>::load(src + static_cast<size_t>(row) * row_stride + d)
-                : 0.f;
-  }
-}
-
-// The thread's 4 x 4 logits: rows ty + 16i of the Q tile against keys
-// tx + 16j of the K tile, f32 accumulation, scale applied to the f32 sum.
-template <int D>
-__device__ __forceinline__ void tile_logits(const float* qs, const float* ks,
-                                            int tx, int ty, float scale,
-                                            float s[4][4]) {
-  constexpr int ld = Smem<D>::kLd;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float q[4], k[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) k[j] = ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(q[i], k[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = acc[i][j] * scale;
-}
-
-// Reductions over the 16 lanes (tx = 0..15) that share a query row.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -205,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
     load_rows<T, D>(ks, S::kLd, k_src, row_stride, k0, kBK, n);
     __syncthreads();
     float s[4][4];
-    tile_logits<D>(qs, ks, tx, ty, scale, s);
+    tile_logits<D, 4>(qs, ks, tx, ty, scale, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mt = -INFINITY;
@@ -239,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     load_rows<T, D>(vs, D, v_src, row_stride, k0, kBK, n);
     __syncthreads();
     float s[4][4];
-    tile_logits<D>(qs, ks, tx, ty, scale, s);
+    tile_logits<D, 4>(qs, ks, tx, ty, scale, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll

@@ -75,13 +75,14 @@ class TrainState:
 @dataclasses.dataclass
 class TrainModule:
     """Configs plus the step functions; ``init`` or ``load`` makes the
-    state that ``train_epoch`` advances."""
+    state that ``train_epoch`` advances.  It runs on the card unless
+    ``device`` says otherwise (the CPU tests pass ``device='cpu'``)."""
 
     model_cfg: ViTConfig
     train_cfg: TrainConfig
     loss_type: str
     iters_per_epoch: int
-    device: Union[str, torch.device] = "cpu"
+    device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
         tc = self.train_cfg

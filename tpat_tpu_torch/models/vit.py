@@ -18,7 +18,9 @@ with ``strict=True``.
 Precision follows the JAX package: parameters are f32 and are cast to the
 compute dtype at use (flax's ``Dense(dtype=...)``), LayerNorm statistics run
 in f32 with the output cast to the compute dtype, the residual stream is in
-the compute dtype, and the head runs in f32.
+the compute dtype, and the head runs in f32.  With ``use_fused_layernorm``
+every block's ``norm1`` and ``norm2`` is a ``FusedLayerNorm`` (the LayerNorm
+kernels); ``fc_norm`` stays the plain ``LayerNorm``, as in the JAX model.
 
 Training randomness (drop-path, 2D time/frequency masking) draws from the
 ``torch.Generator`` the caller passes, never from the global RNG.
@@ -44,6 +46,7 @@ from tpat_tpu_torch.models.pos_embed import sincos_2d
 from tpat_tpu_torch.ops import pruning
 from tpat_tpu_torch.ops.fast_gelu import gelu_poly
 from tpat_tpu_torch.ops.attention import attention_with_scores
+from tpat_tpu_torch.ops.layernorm import fused_layernorm
 from tpat_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_plain,
@@ -113,6 +116,21 @@ class LayerNorm(nn.Module):
         xc = xf - xf.mean(dim=-1, keepdim=True)
         var = (xc * xc).mean(dim=-1, keepdim=True)
         y = xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(self.out_dtype)
+
+
+class FusedLayerNorm(LayerNorm):
+    """``LayerNorm`` through ``ops.layernorm.fused_layernorm`` (the
+    counterpart of ``vit.py:132-162``): on the card its kernels, forward and
+    backward, or an error; on the CPU their plain versions through the same
+    autograd Function.  The output is cast to ``out_dtype``, as the JAX
+    module casts the kernel's.  Parameter names stay ``weight``/``bias``, so
+    the ``.pth`` keys are those of ``LayerNorm``.  The JAX module's backend
+    check (the Pallas kernel on a TPU only, ``vit.py:149-153``) has no
+    counterpart: the flag alone decides."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = fused_layernorm(x, self.weight, self.bias, self.eps)
         return y.to(self.out_dtype)
 
 
@@ -220,9 +238,10 @@ class Block(nn.Module):
         dt = compute_dtype(cfg)
         self.num_extra_tokens = cfg.num_extra_tokens
         self.drop_path_rate = drop_path_rate
-        self.norm1 = LayerNorm(cfg.embed_dim, cfg.layer_norm_eps, dt)
+        norm = FusedLayerNorm if cfg.use_fused_layernorm else LayerNorm
+        self.norm1 = norm(cfg.embed_dim, cfg.layer_norm_eps, dt)
         self.attn = PrunedAttention(cfg)
-        self.norm2 = LayerNorm(cfg.embed_dim, cfg.layer_norm_eps, dt)
+        self.norm2 = norm(cfg.embed_dim, cfg.layer_norm_eps, dt)
         self.mlp = Mlp(cfg)
 
     def _residual(self, x, branch, generator):

@@ -1,2 +1,3 @@
 """Tensor ops of the port: plain PyTorch functions and the wrappers of the
-hand-written Hopper kernels (``qkv_attention``)."""
+hand-written Hopper kernels (``qkv_attention``, ``window_attention``,
+``layernorm``)."""
