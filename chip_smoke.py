@@ -99,7 +99,9 @@ printing a result:
     own path, whose launches are counted);
 20. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
-    ``ln_matmul`` beside those of phases 1-15.
+    ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``
+    entries also give the design of their bf16 build and, per head_dim,
+    its registers and spill bytes from the ptxas report.
 
 Beside each kernel's time the script computes its bound, the least time the
 H100 could take for the same work on these inputs (the larger of the bytes
@@ -217,6 +219,43 @@ def build_kernels():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {lib.name.split('.')[0]}: {line.strip()}")
+
+
+def ptxas_report(name: str) -> dict:
+    """{kernel's mangled name: (registers, spill bytes)} from the ptxas
+    report (``-Xptxas -v``) kept beside the built ``csrc/<name>.cu``; spill
+    bytes are its spill stores plus spill loads."""
+    from tpat_tpu_torch.ops import _build
+
+    report, entry, spill = {}, None, 0
+    for line in _build.build(name).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function '" in line:
+            entry = line.split("'")[1]
+        elif "bytes spill stores" in line:
+            words = line.replace(",", "").split()
+            spill = (int(words[words.index("stores") - 3])
+                     + int(words[words.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and entry is not None:
+            words = line.replace(",", "").split()
+            report[entry] = (int(words[words.index("registers") - 1]), spill)
+            entry, spill = None, 0
+    return report
+
+
+def bf16_build(name: str, kernel: str) -> dict:
+    """The kernels line's fields for the bf16 build of ``kernel`` (its
+    unmangled name in ``csrc/<name>.cu``): its design and, per head_dim, the
+    registers and spill bytes ptxas reports."""
+    regs, spill = {}, {}
+    for entry, (r, s) in ptxas_report(name).items():
+        for d in (64, 80):
+            if kernel in entry and f"ILi{d}E" in entry:
+                regs[str(d)], spill[str(d)] = r, s
+    if sorted(regs) != ["64", "80"]:
+        raise AssertionError(f"no ptxas report of {kernel} in csrc/{name}.cu")
+    return {"design": "mma.sync m16n8k16 bf16 (ldmatrix), cp.async "
+                      "double-buffered tiles; f32 keeps FMA tiles",
+            "registers": regs, "spill_bytes": spill}
 
 
 def _close(got, want, atol, rtol) -> float:
@@ -435,6 +474,7 @@ def time_kernel():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     total_k = total_p = worst = 0.0
     total_b = {}
+    no_score = [0.0, 0.0]  # the calls without scores: kernel, library
     with torch.no_grad():
         for n, mode, calls in PATH_CALLS:
             qkv = torch.randn(128, n, 3 * 768, device="cuda",
@@ -446,8 +486,12 @@ def time_kernel():
             k, p = _turns(kern, plain)
             bms, by = bound_ms(*qkv_work(128, n, 3 * 768, 12, 2, mode),
                                torch.bfloat16)
-            lib = ("none (scores)" if mode is not None
-                   else f"{library_ms('qkv', qkv, 12):.4f} ms")
+            lib = "none (scores)"
+            if mode is None:
+                lib_ms = library_ms("qkv", qkv, 12)
+                no_score[0] += calls * k
+                no_score[1] += calls * lib_ms
+                lib = f"{lib_ms:.4f} ms"
             log(f"time B=128 N={n} mode={mode}: kernel {k:.4f} ms, plain "
                 f"{p:.4f} ms, library {lib}, bound {bms:.4f} ms ({by}) "
                 f"(x{calls} per forward); out abs err {eo:.3g}, score abs "
@@ -457,7 +501,8 @@ def time_kernel():
             total_b[by] = total_b.get(by, 0.0) + calls * bms
     log(f"time per b128 forward, all 12 attention calls: kernel "
         f"{total_k:.4f} ms, plain {total_p:.4f} ms, bound "
-        f"{sum(total_b.values()):.4f} ms")
+        f"{sum(total_b.values()):.4f} ms; the 9 calls without scores: kernel "
+        f"{no_score[0]:.4f} ms, library {no_score[1]:.4f} ms")
     return total_k, total_p, worst, total_b
 
 
@@ -1815,27 +1860,35 @@ def run_phases(tmp):
     b3 = dict(plain=step["B3"][3], bound=bound_of(step["B3bound"]),
               lib=step["B3lib"], per=per_step, pair_ms=step["B3"][2],
               note=bwd_note)
+    fwd_build = bf16_build("qkv_attention", "qkv_attention_fwd_bf16_kernel")
     kernels = [
         _entry("qkv_attention_fwd", "qkv_attention.cu", "tpat_tpu/ops/pallas_attention.py:121",
                serve_launches + train_launches[0] + audioset[0] + esc50[0],
                max(grid_err, timed_err, path_err["B1"], pre_err["B1"]),
                ms, plain_ms, bound_of(serve_bound), None,
                "one b128 bf16 serving forward (12 calls)",
-               note="5 of the 12 calls emit patch_mean scores, which no "
-                    "library call computes; the 7 without scores are timed "
-                    "against the library call in phase 3"),
+               note="3 of the 12 calls (the drop blocks 3, 6, 9) emit "
+                    "patch_mean scores, which no library call computes; the "
+                    "9 without scores are timed against the library call in "
+                    "phase 3",
+               **fwd_build),
         _entry("qkv_attention_prefix_fwd", "qkv_attention.cu",
                "tpat_tpu/ops/pallas_attention.py:121", train_launches[1],
                max(prefix_err, path_err["B2"]), step["B2"][0], step["B2"][1],
-               bound_of(step["B2bound"]), step["B2lib"], per_step),
+               bound_of(step["B2bound"]), step["B2lib"], per_step,
+               **fwd_build),
         _entry("qkv_attention_bwd_rows", "qkv_attention_bwd.cu", bwd,
                train_launches[2] + audioset[1] + esc50[1], b3_err,
                step["B3"][0], b3["plain"], b3["bound"], b3["lib"], per_step,
-               pair_ms=b3["pair_ms"], note=bwd_note),
+               pair_ms=b3["pair_ms"], note=bwd_note,
+               **bf16_build("qkv_attention_bwd",
+                            "qkv_attention_bwd_rows_bf16_kernel")),
         _entry("qkv_attention_bwd_cols", "qkv_attention_bwd.cu", bwd,
                train_launches[3] + audioset[2] + esc50[2], b3_err,
                step["B3"][1], b3["plain"], b3["bound"], b3["lib"], per_step,
-               pair_ms=b3["pair_ms"], note=bwd_note),
+               pair_ms=b3["pair_ms"], note=bwd_note,
+               **bf16_build("qkv_attention_bwd",
+                            "qkv_attention_bwd_cols_bf16_kernel")),
     ]
     for name, key, grid, replaces in (
             ("window_attention_fwd", "B5 fwd", "ESC-50",

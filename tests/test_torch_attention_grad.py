@@ -259,3 +259,92 @@ def test_gelu_poly_saves_only_its_input():
     saved = y.grad_fn.saved_tensors
     assert len(saved) == 1 and saved[0].dtype == torch.bfloat16
     assert saved[0].data_ptr() == x.data_ptr()
+
+
+# The algebra of the bf16 backward kernels (csrc/qkv_attention_bwd.cu), which
+# cannot run here: the rows kernel's two sweeps over 64-key tiles (m, l and
+# the unnormalised D_run online, then dlog and dq) and the cols kernel's
+# dk and dv over 64-key tiles that walk every query tile, in f32.
+TILE = 64
+
+
+def _emulated_kernel_backward(qkv, d_out, ds, mode, extra, kv):
+    b, n, c3 = qkv.shape
+    q, k, v = (qa._split_heads(t, H) for t in qkv.chunk(3, dim=-1))
+    do = qa._split_heads(d_out, H)
+    scale = D ** -0.5
+    kv = n if kv is None else kv
+    rows = torch.arange(n)
+    srow = ((rows >= extra) & (rows < kv)).float() if ds is not None else None
+
+    def logits_and_dp(qi, kj, doi, vj, qrows, keys):
+        s = qi @ kj.transpose(-1, -2) * scale
+        dp = doi @ vj.transpose(-1, -2)
+        if ds is not None:
+            dp = dp + srow[qrows][:, None] * ds[:, None, None, keys]
+        return s, dp
+
+    # rows kernel, sweep 1: m, l and D_run online over the valid key tiles
+    m = torch.full((b, H, n), -torch.inf)
+    l = torch.zeros(b, H, n)
+    d_run = torch.zeros(b, H, n)
+    for k0 in range(0, kv, TILE):
+        keys = torch.arange(k0, min(k0 + TILE, kv))
+        s, dp = logits_and_dp(q, k[:, :, keys], do, v[:, :, keys], rows, keys)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s - m_new[..., None])
+        l = l * alpha + e.sum(-1)
+        d_run = d_run * alpha + (e * dp).sum(-1)
+        m = m_new
+    inv = 1.0 / l
+    delta = d_run / l
+    # sweep 2: dlog and dq
+    dq = torch.zeros_like(q)
+    for k0 in range(0, kv, TILE):
+        keys = torch.arange(k0, min(k0 + TILE, kv))
+        s, dp = logits_and_dp(q, k[:, :, keys], do, v[:, :, keys], rows, keys)
+        p = torch.exp(s - m[..., None]) * inv[..., None]
+        dq += (p * (dp - delta[..., None])) @ k[:, :, keys]
+    # cols kernel: each valid key tile walks every query tile
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, kv, TILE):
+        keys = torch.arange(k0, min(k0 + TILE, n))
+        valid = (keys < kv).float()[:, None]
+        for q0 in range(0, n, TILE):
+            qs = torch.arange(q0, min(q0 + TILE, n))
+            st, dpt = logits_and_dp(q[:, :, qs], k[:, :, keys], do[:, :, qs],
+                                    v[:, :, keys], qs, keys)
+            p = torch.exp(st - m[:, :, qs, None]) * inv[:, :, qs, None]
+            p = p.transpose(-1, -2) * valid  # (keys, queries)
+            dlog = p * (dpt.transpose(-1, -2) - delta[:, :, None, qs])
+            dv[:, :, keys] += p @ do[:, :, qs]
+            dk[:, :, keys] += dlog @ q[:, :, qs]
+    return torch.cat([qa._merge_heads(g) for g in (dq * scale, dk * scale, dv)],
+                     dim=-1)
+
+
+@pytest.mark.parametrize("n", [90, 129, 257, 258])
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("mode", [None, "patch_mean"])
+def test_two_sweep_backward_algebra_matches_jax_vjp(n, prefix, mode):
+    """The tiled online recurrence of the bf16 backward kernels, emulated in
+    f32, vs jax.vjp of the JAX kernels (fused_qkv_attention, or the prefix
+    form at a middle kv_valid), with a score cotangent for patch_mean:
+    within 1e-5 of the largest |gradient|."""
+    extra = 1
+    kv = (extra + 1 + n) // 2 if prefix else None
+    rng = np.random.default_rng(n + 7 * prefix)
+    qkv = _qkv(1, n, n)
+    d_out = rng.normal(size=(1, n, H * D)).astype(np.float32)
+    d_scores = (n * rng.normal(size=(1, n - extra))).astype(np.float32)
+    (_, jscores), vjp = jax.vjp(_jax_fn(kv, mode, extra), jnp.asarray(qkv))
+    (want,) = vjp((jnp.asarray(d_out),
+                   None if jscores is None else jnp.asarray(d_scores)))
+    want = np.asarray(want)
+    ds = None if mode is None else torch.from_numpy(d_scores)
+    got = _emulated_kernel_backward(
+        torch.from_numpy(qkv), torch.from_numpy(d_out),
+        qa._score_cotangent(ds, mode, H, n, extra, kv), mode, extra, kv,
+    ).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

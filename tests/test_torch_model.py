@@ -150,3 +150,33 @@ def test_unported_features_refuse():
         AudioViT(ast_vit_base(target_length=32, num_classes=2))
     with pytest.raises(ValueError, match="keep_rates"):
         model(x, (1.0,))
+
+
+def test_dense_init_xavier_uniform_matches_the_jax_init():
+    """ViTConfig.dense_init (as tests/test_mae.py checks the JAX init):
+    under 'xavier_uniform' every trunk Linear weight lies within
+    +-sqrt(6/(fan_in+fan_out)) and reaches near that bound, the patch conv
+    likewise over its (O, I*kh*kw)-flattened fans; the default
+    'trunc_normal' stays within +-2 std = 0.04; the head is
+    trunc-normal(2e-5) under both."""
+    from torch import nn
+
+    def bound(w):
+        return float(np.sqrt(6.0 / (w[0].numel() + w.shape[0])))
+
+    model = AudioViT(dataclasses.replace(_cfg(), dense_init="xavier_uniform"))
+    linears = [(n, m.weight) for n, m in model.named_modules()
+               if isinstance(m, nn.Linear) and n != "head"]
+    assert len(linears) == 4 * DEPTH  # qkv, proj, fc1, fc2 per block
+    conv = model.patch_embed.proj.weight
+    assert conv.dim() == 4
+    for name, w in linears + [("patch conv", conv)]:
+        peak = w.abs().max().item()
+        assert peak <= bound(w) * 1.0001, name
+        assert peak >= bound(w) * 0.9, (name, "not uniform to the bound")
+    assert model.head.weight.abs().max().item() <= 4e-5
+    default = AudioViT(_cfg())
+    for name, m in default.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)) and name != "head":
+            assert m.weight.abs().max().item() <= 0.04 * 1.0001, name
+    assert default.head.weight.abs().max().item() <= 4e-5

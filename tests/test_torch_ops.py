@@ -185,3 +185,21 @@ def test_wrapper_validates_before_dispatch():
     assert qa.supports(12, 64, 257) and qa.supports(16, 80, 513)
     assert not qa.supports(4, 32, 17) and not qa.supports(12, 64, 0)
     assert qa.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alignment_predicate_refuses_offset_views(dtype):
+    """The wrappers refuse a CUDA tensor that does not start on a 16-byte
+    boundary (the bf16 kernels' cp.async and ldmatrix move 16 bytes a
+    lane); the predicate is held here on CPU views whose offsets move the
+    start by less than 16 bytes, and the CPU route does not consult it."""
+    base = torch.zeros(4 * 5 * 3 * 128 + 16, dtype=dtype)
+    assert qa.aligned16(base)
+    step = base.element_size()
+    for offset in range(1, 16 // step + 1):
+        view = base[offset:offset + 5 * 3 * 128].view(1, 5, 3 * 128)
+        assert view.is_contiguous()
+        assert qa.aligned16(view) == (offset * step % 16 == 0)
+    misaligned = base[1:1 + 5 * 3 * 128].view(1, 5, 3 * 128)
+    out, _ = qa.fused_qkv_attention(misaligned, 2, None, 1)
+    assert out.shape == (1, 5, 128) and qa.launches == 0

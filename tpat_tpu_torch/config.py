@@ -119,8 +119,9 @@ class ViTConfig:
     # AMP, engine_finetune.py:102 autocast); float32 is the explicit
     # override for parity tests and cross-checks.
     compute_dtype: str = "bfloat16"
-    # The JAX package's Pallas LayerNorm kernel for the block norms, off by
-    # default there; the port has no LayerNorm kernel yet and ignores it.
+    # The fused LayerNorm kernel for the block norms (the JAX package's
+    # Pallas kernel; here csrc/layernorm.cu through models/vit.py's
+    # FusedLayerNorm), off by default as there.
     use_fused_layernorm: bool = False
     # Attention implementation: 'xla' (plain attention, reference math),
     # 'fused' (the hand-written attention kernels, ops/qkv_attention.py,

@@ -23,31 +23,48 @@
 // query row; on the TPU one grid step holds the whole (N, N) tile of a head,
 // but CTAs on the card run in no order.  So, with no atomics and nothing
 // (B, H, N, N) in HBM, two kernels run in turn on the stream:
-//   1. rows: one CTA per (b, h, 64-row query tile).  Pass 1 walks K for each
-//      row's running max m and denominator l (the forward's online pass);
-//      pass 2 walks K and V for delta = sum_k dp p; pass 3 walks them again,
-//      forms the dlog tile in shared memory and accumulates dq.  It writes
-//      dq and the f32 (B, H, 3, N) scratch [m | 1/l | delta].
+//   1. rows: one CTA per (b, h, 64-row query tile).  It writes dq and the
+//      f32 (B, H, 3, N) scratch [m | 1/l | delta].
 //   2. cols: one CTA per (b, h, 64-key tile).  It holds its K and V tiles,
-//      walks every query tile, recomputes p from m and 1/l (the same logit
-//      code as the rows kernel, so the same bits) and dp, forms dlog and the
-//      rounded p in shared memory, and accumulates dk and dv in registers; it
-//      writes them once.  Key tiles wholly past kv_valid write zeros.
+//      walks every query tile, recomputes p from m and 1/l and dp, and
+//      accumulates dk and dv in registers; it writes them once.  Key tiles
+//      wholly past kv_valid write zeros.
 // Deterministic: every sum has one owner and a fixed order.
 //
-// What bounds it at the training shapes (D = 64, N in 257..90): the N^2.D
-// FMA work, about 10 N^2 D per head (the rows kernel takes 3 logit sweeps,
-// 2 dp sweeps and dq; the cols kernel a logit sweep, a dp sweep, dk and dv),
-// against 4 N^2 D of useful work.  Every K, V, Q or dO element a CTA stages
-// in shared memory feeds 64 FMAs, so the FMA pipes, not memory, are the
-// limit.  Plain FMA loops with 4 x 4 register micro-tiles (as the forward);
-// tensor cores (mma.sync / wgmma) and fewer sweeps are later work.
+// bf16 (every path of the model): the bound is bytes (0.98 ms per b128
+// hybrid-0.8 step, against ~10 N^2 D FLOPs that the tensor cores do in a
+// fraction of it), so every product runs as mma.sync m16n8k16 with f32
+// accumulation on bf16 tiles staged by 16-byte cp.async into padded rows,
+// the streamed tiles double-buffered (attention_mma.cuh).  Four warps, each
+// owning 16 rows of the CTA's tile; keys (rows kernel) or queries (cols
+// kernel) are processed 16 at a time.
+//   rows: two sweeps over the keys.  Sweep 1 computes s = q.k^T and
+//     dp = dO.v^T and keeps m, l and the unnormalised D_run = sum_k
+//     exp(s - m) dp_k online (D_run is rescaled by exp(m_old - m_new) as l
+//     is), so delta = D_run / l at its end.  Sweep 2 recomputes s and dp,
+//     forms dlog on the accumulator fragments and feeds it, rounded to bf16,
+//     as the A operand of dq += dlog.k (k read transposed by ldmatrix).
+//     The Q and dO fragments stay in registers.
+//   cols: the products are taken with the key tile as the A operand:
+//     s^T = k.q^T and dp^T = v.dO^T, so p^T and dlog^T come out in the
+//     accumulator layout of the warp's 16 keys and, rounded to bf16, are the
+//     A operands of dv += round(p)^T.dO and dk += dlog^T.q straight from
+//     registers (dO and q read transposed by ldmatrix), with no trip through
+//     shared memory.  Each logit is the same exact bf16 products summed over
+//     the same k-steps in the same order as in the rows kernel (the one
+//     product_nt code with the operands' roles swapped).
+// f32 (the parity checks, held to plain at 1e-4 of the largest gradient):
+// tensor-core f32 would be TF32, so it stays on exact FMA loops with 4 x 4
+// register micro-tiles over f32 tiles in shared memory; its rows kernel
+// sweeps the keys three times (m and l; delta; dlog and dq).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -57,6 +74,8 @@ constexpr int kModeNone = 0;
 constexpr int kModePatchMean = 1;
 constexpr int kModeCls = 2;
 
+// The FMA kernels' loads, stores and rounding: f32 only (bf16 runs the
+// tensor-core kernels below).
 template <typename T>
 struct Io;
 
@@ -65,19 +84,6 @@ struct Io<float> {
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
   static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
 };
 
 // Shared-memory layout in floats: four staged (64, D) tiles with rows padded
@@ -454,6 +460,342 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Shared memory of the bf16 kernels, in bytes: six padded tiles (rows: Q,
+// dO, two K, two V; cols: K, V, two Q, two dO) and, for the cols kernel, two
+// buffers of the per-query [m | 1/l | delta | score-row flag].
+template <int D>
+struct SmemBf16 {
+  static constexpr int kElems = mma::Tile<D>::kElems;
+  static constexpr size_t kTiles = 6 * mma::Tile<D>::kBytes;
+  static constexpr size_t kVec = 2 * 4 * mma::kRows * sizeof(float);
+  static constexpr size_t kRowsBytes = kTiles;
+  static constexpr size_t kColsBytes = kTiles + kVec;
+};
+
+template <int D>
+__global__ void __launch_bounds__(mma::kThreads)
+    qkv_attention_bwd_rows_bf16_kernel(const Args a) {
+  using mma::bf16;
+  constexpr int kElems = SmemBf16<D>::kElems;
+  constexpr int kR = mma::kRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kElems;
+  bf16* ks = dos + kElems;     // two buffers
+  bf16* vs = ks + 2 * kElems;  // two buffers
+
+  const int n = a.n;
+  const int kv = a.kv_valid;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int c = a.num_heads * D;
+  const size_t stride = 3 * static_cast<size_t>(c);
+  const bf16* q_src = static_cast<const bf16*>(a.qkv) +
+                      static_cast<size_t>(b) * n * stride +
+                      static_cast<size_t>(h) * D;
+  const bf16* k_src = q_src + c;
+  const bf16* v_src = q_src + 2 * c;
+  const bf16* do_src = static_cast<const bf16*>(a.dout) +
+                       static_cast<size_t>(b) * n * c +
+                       static_cast<size_t>(h) * D;
+  const float* ds =
+      a.ds == nullptr ? nullptr : a.ds + static_cast<size_t>(b) * n;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t2 = (lane & 3) * 2;
+  const int q0 = blockIdx.x * kR;
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // and row0 + 8
+  const int nkt = (kv + kR - 1) / kR;
+  const int stages = 2 * nkt;  // two sweeps over the valid key tiles
+
+  mma::load_tile<D>(qs, q_src, stride, q0, n);
+  mma::load_tile<D>(dos, do_src, c, q0, n);
+  mma::load_tile<D>(ks, k_src, stride, 0, n);
+  mma::load_tile<D>(vs, v_src, stride, 0, n);
+  mma::cp_async_commit();
+
+  bool srow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    srow[i] = ds != nullptr && score_row(row0 + 8 * i, a.mode, a.extra, kv);
+  uint32_t qa[D / 16][4], da[D / 16][4];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float d_run[2] = {0.f, 0.f};
+  float inv[2] = {0.f, 0.f};
+  float delta[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int st = 0; st < stages; ++st) {
+    const int next = st + 1;
+    if (next < stages) {
+      const int kt = (next < nkt ? next : next - nkt) * kR;
+      mma::load_tile<D>(ks + (next & 1) * kElems, k_src, stride, kt, n);
+      mma::load_tile<D>(vs + (next & 1) * kElems, v_src, stride, kt, n);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if (st == 0) {
+      mma::load_a<D>(qa, qs, warp * 16, lane);
+      mma::load_a<D>(da, dos, warp * 16, lane);
+    }
+    const bool sweep2 = st >= nkt;
+    const int k0 = (sweep2 ? st - nkt : st) * kR;
+    const bf16* kt_s = ks + (st & 1) * kElems;
+    const bf16* vt_s = vs + (st & 1) * kElems;
+    if (st == nkt) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float l_row = mma::quad_sum(l[i]);
+        inv[i] = 1.f / l_row;
+        delta[i] = mma::quad_sum(d_run[i]) / l_row;
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < kR / 16; ++ch) {
+      const int kb = k0 + ch * 16;
+      if (kb >= kv) break;  // the rest of the tile is masked
+      float s[2][4], dp[2][4];
+      mma::product_nt<D>(s, qa, kt_s, ch * 16, lane);
+      mma::product_nt<D>(dp, da, vt_s, ch * 16, lane);
+      bool valid[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kb + 8 * j + t2 + e;
+          valid[j][e] = key < kv;
+          const float dsk = ds != nullptr && valid[j][e] ? ds[key] : 0.f;
+          s[j][e] *= a.scale;
+          s[j][2 + e] *= a.scale;
+          if (srow[0]) dp[j][e] += dsk;
+          if (srow[1]) dp[j][2 + e] += dsk;
+        }
+      if (!sweep2) {
+        float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (valid[j][e]) {
+              mt[0] = fmaxf(mt[0], s[j][e]);
+              mt[1] = fmaxf(mt[1], s[j][2 + e]);
+            }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m[i], mma::quad_max(mt[i]));  // key 0 valid
+          const float alpha = expf(m[i] - m_new);
+          l[i] *= alpha;
+          d_run[i] *= alpha;
+          m[i] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (valid[j][e]) {
+              const float e0 = expf(s[j][e] - m[0]);
+              const float e1 = expf(s[j][2 + e] - m[1]);
+              l[0] += e0;
+              l[1] += e1;
+              d_run[0] = fmaf(e0, dp[j][e], d_run[0]);
+              d_run[1] = fmaf(e1, dp[j][2 + e], d_run[1]);
+            }
+        continue;
+      }
+      // sweep 2: dlog = p (dp - delta), then dq += dlog . k
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int at = 2 * i + e;
+            s[j][at] = valid[j][e] ? expf(s[j][at] - m[i]) * inv[i] *
+                                         (dp[j][at] - delta[i])
+                                   : 0.f;
+          }
+        }
+      uint32_t ga[4];
+      mma::to_a(ga, s);
+      mma::product_nn<D>(acc, ga, kt_s, ch * 16, lane);
+    }
+    __syncthreads();  // buffers st & 1 consumed
+  }
+
+  mma::store_rows<D>(static_cast<bf16*>(a.dqkv) +
+                         static_cast<size_t>(b) * n * stride +
+                         static_cast<size_t>(h) * D,
+                     stride, acc, q0 + warp * 16, n, a.scale, lane);
+  if ((lane & 3) == 0) {
+    float* stats = a.stats + (static_cast<size_t>(b) * a.num_heads + h) * 3 * n;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= n) continue;
+      stats[row] = m[i];
+      stats[n + row] = inv[i];
+      stats[2 * n + row] = delta[i];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(mma::kThreads)
+    qkv_attention_bwd_cols_bf16_kernel(const Args a) {
+  using mma::bf16;
+  constexpr int kElems = SmemBf16<D>::kElems;
+  constexpr int kR = mma::kRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kElems;
+  bf16* qs = vs + kElems;       // two buffers
+  bf16* dos = qs + 2 * kElems;  // two buffers
+  // per query of a tile: m | 1/l | delta | score-row flag; two buffers
+  float* vec = reinterpret_cast<float*>(smem_raw + SmemBf16<D>::kTiles);
+
+  const int n = a.n;
+  const int kv = a.kv_valid;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int c = a.num_heads * D;
+  const size_t stride = 3 * static_cast<size_t>(c);
+  const bf16* q_src = static_cast<const bf16*>(a.qkv) +
+                      static_cast<size_t>(b) * n * stride +
+                      static_cast<size_t>(h) * D;
+  const bf16* k_src = q_src + c;
+  const bf16* v_src = q_src + 2 * c;
+  const bf16* do_src = static_cast<const bf16*>(a.dout) +
+                       static_cast<size_t>(b) * n * c +
+                       static_cast<size_t>(h) * D;
+  const float* ds =
+      a.ds == nullptr ? nullptr : a.ds + static_cast<size_t>(b) * n;
+  const float* stats =
+      a.stats + (static_cast<size_t>(b) * a.num_heads + h) * 3 * n;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t2 = (lane & 3) * 2;
+  const int k0 = blockIdx.x * kR;
+  const int key0 = k0 + warp * 16 + (lane >> 2);  // and key0 + 8
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  if (k0 < kv) {  // a key tile wholly past kv_valid has zero gradients
+    auto load_vec = [&](float* dst, int qb) {
+      if (tid < kR) {
+        const int q = qb + tid;
+        const bool ok = q < n;
+        dst[tid] = ok ? stats[q] : 0.f;
+        dst[kR + tid] = ok ? stats[n + q] : 0.f;
+        dst[2 * kR + tid] = ok ? stats[2 * n + q] : 0.f;
+        dst[3 * kR + tid] =
+            ds != nullptr && ok && score_row(q, a.mode, a.extra, kv) ? 1.f
+                                                                     : 0.f;
+      }
+    };
+    mma::load_tile<D>(ks, k_src, stride, k0, n);
+    mma::load_tile<D>(vs, v_src, stride, k0, n);
+    mma::load_tile<D>(qs, q_src, stride, 0, n);
+    mma::load_tile<D>(dos, do_src, c, 0, n);
+    mma::cp_async_commit();
+    load_vec(vec, 0);
+
+    bool kvalid[2];
+    float dsk[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + 8 * i;
+      kvalid[i] = key < kv;
+      dsk[i] = ds != nullptr && kvalid[i] ? ds[key] : 0.f;
+    }
+    const int nqt = (n + kR - 1) / kR;
+    for (int t = 0; t < nqt; ++t) {
+      if (t + 1 < nqt) {
+        const int buf = (t + 1) & 1;
+        mma::load_tile<D>(qs + buf * kElems, q_src, stride, (t + 1) * kR, n);
+        mma::load_tile<D>(dos + buf * kElems, do_src, c, (t + 1) * kR, n);
+        load_vec(vec + buf * 4 * kR, (t + 1) * kR);
+      }
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+      __syncthreads();
+      const int qb = t * kR;
+      const bf16* qt_s = qs + (t & 1) * kElems;
+      const bf16* dot_s = dos + (t & 1) * kElems;
+      const float* vc = vec + (t & 1) * 4 * kR;
+#pragma unroll
+      for (int ch = 0; ch < kR / 16; ++ch) {
+        const int ql0 = ch * 16;
+        if (qb + ql0 >= n) break;
+        uint32_t frag[D / 16][4];
+        float s[2][4], dp[2][4];
+        mma::load_a<D>(frag, ks, warp * 16, lane);
+        mma::product_nt<D>(s, frag, qt_s, ql0, lane);  // s^T = k . q^T
+        mma::load_a<D>(frag, vs, warp * 16, lane);
+        mma::product_nt<D>(dp, frag, dot_s, ql0, lane);  // dp^T = v . dO^T
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ql = ql0 + 8 * j + t2 + e;
+            const bool qvalid = qb + ql < n;
+            const float mq = vc[ql];
+            const float iq = vc[kR + ql];
+            const float dq = vc[2 * kR + ql];
+            const bool sr = vc[3 * kR + ql] != 0.f;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int at = 2 * i + e;
+              const bool ok = kvalid[i] && qvalid;
+              const float p = ok ? expf(s[j][at] * a.scale - mq) * iq : 0.f;
+              const float dpv = sr ? dp[j][at] + dsk[i] : dp[j][at];
+              dp[j][at] = ok ? p * (dpv - dq) : 0.f;  // dlog^T
+              s[j][at] = p;
+            }
+          }
+        uint32_t pa[4], ga[4];
+        mma::to_a(pa, s);
+        mma::to_a(ga, dp);
+        mma::product_nn<D>(dv, pa, dot_s, ql0, lane);
+        mma::product_nn<D>(dk, ga, qt_s, ql0, lane);
+      }
+      __syncthreads();  // buffers t & 1 consumed
+    }
+  }
+
+  bf16* dst = static_cast<bf16*>(a.dqkv) + static_cast<size_t>(b) * n * stride +
+              static_cast<size_t>(h) * D;
+  mma::store_rows<D>(dst + c, stride, dk, k0 + warp * 16, n, a.scale, lane);
+  mma::store_rows<D>(dst + 2 * c, stride, dv, k0 + warp * 16, n, 1.f, lane);
+}
+
+template <int D>
+cudaError_t launch_bf16(bool rows, const Args& a, int batch,
+                        cudaStream_t stream) {
+  auto kernel = rows ? qkv_attention_bwd_rows_bf16_kernel<D>
+                     : qkv_attention_bwd_cols_bf16_kernel<D>;
+  const size_t smem =
+      rows ? SmemBf16<D>::kRowsBytes : SmemBf16<D>::kColsBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + mma::kRows - 1) / mma::kRows, a.num_heads, batch);
+  kernel<<<grid, mma::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(bool rows, const Args& a, int batch, cudaStream_t stream) {
   auto kernel = rows ? qkv_attention_bwd_rows_kernel<T, D>
@@ -484,10 +826,8 @@ int dispatch(bool rows, const void* qkv, const void* dout, const void* ds,
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(rows, a, batch, s);
   if (dtype == 0 && head_dim == 80) return launch<float, 80>(rows, a, batch, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(rows, a, batch, s);
-  if (dtype == 1 && head_dim == 80)
-    return launch<__nv_bfloat16, 80>(rows, a, batch, s);
+  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(rows, a, batch, s);
+  if (dtype == 1 && head_dim == 80) return launch_bf16<80>(rows, a, batch, s);
   return cudaErrorInvalidValue;
 }
 

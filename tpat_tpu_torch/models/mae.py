@@ -48,7 +48,9 @@ from torch import nn
 
 from tpat_tpu_torch.config import ViTConfig
 from tpat_tpu_torch.models.pos_embed import sincos_2d
-from tpat_tpu_torch.models.vit import Block, LayerNorm, Linear, Mlp, PatchEmbed
+from tpat_tpu_torch.models.vit import (
+    Block, LayerNorm, Linear, Mlp, PatchEmbed, xavier_uniform_,
+)
 from tpat_tpu_torch.ops import window_attention as wa
 from tpat_tpu_torch.ops.pruning import take_rows
 
@@ -440,21 +442,12 @@ class MaskedAutoencoderViT(nn.Module):
         and mask tokens, logit_scale log 10, and the fixed 2D sin-cos tables
         (zero row for CLS) for both pos embeds."""
         cfg = self.cfg
-
-        def xavier(w, fan_in, fan_out):
-            bound = math.sqrt(6.0 / (fan_in + fan_out))
-            w.uniform_(-bound, bound, generator=generator)
-
         for m in self.modules():
             if isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            elif isinstance(m, nn.Linear):
-                xavier(m.weight, m.in_features, m.out_features)
-                m.bias.zero_()
-            elif isinstance(m, nn.Conv2d):
-                o = m.weight.shape[0]
-                xavier(m.weight, m.weight[0].numel(), o)
+            elif isinstance(m, (nn.Linear, nn.Conv2d)):
+                xavier_uniform_(m.weight, generator)
                 m.bias.zero_()
             elif isinstance(m, WindowAttentionV2):
                 m.logit_scale.fill_(math.log(10.0))

@@ -34,6 +34,7 @@ and ``forward_masked``'s ``num_left_tables`` and intensity band.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -323,6 +324,17 @@ class Block(nn.Module):
         return x, token_mask
 
 
+@torch.no_grad()
+def xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """torch's xavier-uniform over ``w`` flattened to (out, in*...): bound
+    sqrt(6 / (fan_in + fan_out)).  A Linear's (out, in) weight gives its
+    own fans; a conv's (O, I, kh, kw) weight gives fan_in I*kh*kw and
+    fan_out O, the JAX package's ``_conv_flat_xavier``
+    (``models_mae.py:159-161``), not flax's conv fans."""
+    bound = math.sqrt(6.0 / (w[0].numel() + w.shape[0]))
+    return w.uniform_(-bound, bound, generator=generator)
+
+
 def _check_ported(cfg: ViTConfig):
     if cfg.num_extra_tokens != 1 or cfg.pooling != "gap_fcnorm" or cfg.use_final_norm:
         raise NotImplementedError(
@@ -381,12 +393,14 @@ class AudioViT(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        """Initialise like the JAX package: trunc-normal(0.02, +-2 std) for
-        the weight matrices, the patch conv and the CLS token, zero biases,
-        unit LayerNorm scales, trunc-normal(2e-5) for the head, and the
-        fixed 2D sin-cos table for a frozen pos embed.  (flax's default conv
-        init is lecun-normal; weights cross between the packages through the
-        state dict, never through the initialiser.)"""
+        """Initialise like the JAX package: the weight matrices and the
+        patch conv by ``cfg.dense_init`` (trunc-normal(0.02, +-2 std), or
+        xavier-uniform with the conv flattened, ``vit.py::_kinit`` and
+        ``_conv_flat_xavier``), trunc-normal(0.02) for the CLS token, zero
+        biases, unit LayerNorm scales, trunc-normal(2e-5) for the head under
+        either, and the fixed 2D sin-cos table for a frozen pos embed.
+        (flax's default conv init is lecun-normal; weights cross between the
+        packages through the state dict, never through the initialiser.)"""
         cfg = self.cfg
 
         def trunc(t, std):
@@ -398,7 +412,10 @@ class AudioViT(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, (nn.Linear, nn.Conv2d)):
-                trunc(m.weight, 0.02)
+                if cfg.dense_init == "xavier_uniform":
+                    xavier_uniform_(m.weight, generator)
+                else:
+                    trunc(m.weight, 0.02)
                 if m.bias is not None:
                     m.bias.zero_()
         trunc(self.head.weight, 2e-5)

@@ -16,7 +16,9 @@ residual) and recompute p in the backward:
 
 - on a CUDA tensor the forward launches ``csrc/qkv_attention.cu`` and the
   backward ``csrc/qkv_attention_bwd.cu`` (both built with nvcc at first use),
-  or raise;
+  or raise: bf16 runs their tensor-core kernels (mma.sync, cp.async), f32
+  their exact FMA kernels, and a tensor that is not contiguous or does not
+  start on a 16-byte boundary (``aligned16``) is refused;
 - on a CPU tensor they run the plain PyTorch versions beside them
   (``fused_qkv_attention_plain``, ``fused_qkv_attention_prefix_plain``,
   ``fused_qkv_attention_bwd_plain``).  That is the only case the plain
@@ -254,6 +256,12 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s data starts on a 16-byte boundary, as the bf16
+    kernels' cp.async copies and ldmatrix loads (16 bytes a lane) need."""
+    return t.data_ptr() % 16 == 0
+
+
 def _check_device(qkv: torch.Tensor, num_heads: int):
     if qkv.device.type != "cuda":
         raise ValueError(f"no qkv_attention kernel for device {qkv.device}")
@@ -266,6 +274,8 @@ def _check_device(qkv: torch.Tensor, num_heads: int):
         )
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
+    if not aligned16(qkv):
+        raise ValueError("qkv must start on a 16-byte boundary")
 
 
 def _forward_kernel(qkv, num_heads, mode, extra, kv_valid):
@@ -321,6 +331,8 @@ def _bwd_launch_args(qkv, d_out, d_scores, num_heads, mode, extra, kv_valid):
     if d_out.device != qkv.device:
         raise ValueError("d_out must be on qkv's device")
     d_out = d_out.contiguous()
+    if not aligned16(d_out):
+        raise ValueError("d_out must start on a 16-byte boundary")
     ds = _score_cotangent(d_scores, mode, num_heads, n, extra, kv_valid)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((b, num_heads, 3, n), dtype=torch.float32,
