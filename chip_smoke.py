@@ -99,16 +99,21 @@ printing a result:
     own path, whose launches are counted);
 20. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
-    ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``
-    entries also give the design of their bf16 build and, per head_dim,
-    its registers and spill bytes from the ptxas report.
+    ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*`` and
+    ``window_attention_*`` entries also give the design of their bf16 build
+    and the registers and spill bytes of its kernels (per head_dim) from the
+    ptxas report, and the backward entries the SDPA backend of their
+    library call.
 
 Beside each kernel's time the script computes its bound, the least time the
 H100 could take for the same work on these inputs (the larger of the bytes
 the call must move at 3.35 TB/s and the FLOPs its data needs at 989 TFLOP/s
 bf16, or 67 TFLOP/s for LayerNorm's f32 arithmetic), and times the one
 PyTorch call that computes the same function, where there is one
-(``library_ms``; a yardstick that the port never calls).
+(``library_ms``; a yardstick that the port never calls).  A backward's
+library call is SDPA's autograd backward under each backend that takes
+its inputs, the median of several timed loops, the fastest reported with
+its backend's name.
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training and pretrain paths, and the probes' mains), error,
@@ -242,20 +247,56 @@ def ptxas_report(name: str) -> dict:
     return report
 
 
-def bf16_build(name: str, kernel: str) -> dict:
-    """The kernels line's fields for the bf16 build of ``kernel`` (its
-    unmangled name in ``csrc/<name>.cu``): its design and, per head_dim, the
-    registers and spill bytes ptxas reports."""
+def build_fields(name: str, design: str, kernels: dict) -> dict:
+    """The kernels line's fields for a bf16 build in ``csrc/<name>.cu``: its
+    design and, per label of ``kernels`` (label: the substrings that pick
+    one kernel's mangled name), the registers and spill bytes ptxas
+    reports."""
     regs, spill = {}, {}
-    for entry, (r, s) in ptxas_report(name).items():
-        for d in (64, 80):
-            if kernel in entry and f"ILi{d}E" in entry:
-                regs[str(d)], spill[str(d)] = r, s
-    if sorted(regs) != ["64", "80"]:
-        raise AssertionError(f"no ptxas report of {kernel} in csrc/{name}.cu")
-    return {"design": "mma.sync m16n8k16 bf16 (ldmatrix), cp.async "
-                      "double-buffered tiles; f32 keeps FMA tiles",
-            "registers": regs, "spill_bytes": spill}
+    report = ptxas_report(name)
+    for label, parts in kernels.items():
+        found = [v for e, v in report.items() if all(p in e for p in parts)]
+        if len(found) != 1:
+            raise AssertionError(f"no single ptxas report of {parts} in "
+                                 f"csrc/{name}.cu")
+        regs[label], spill[label] = found[0]
+    return {"design": design, "registers": regs, "spill_bytes": spill}
+
+
+def bf16_build(name: str, kernel: str) -> dict:
+    """``build_fields`` of a qkv_attention kernel (its unmangled name), per
+    head_dim."""
+    return build_fields(
+        name, "mma.sync m16n8k16 bf16 (ldmatrix), cp.async double-buffered "
+              "tiles; f32 keeps FMA tiles",
+        {str(d): (kernel, f"ILi{d}E") for d in (64, 80)})
+
+
+WINDOW_FWD_BUILD = (
+    "window_attention",
+    "f32 FMA loops on 4 x 4 register micro-tiles over f32 tiles in shared "
+    "memory, bf16 widened at the load (both dtypes)",
+    {"32": ("window_attention_fwd_kernel", "__nv_bfloat16Li32E")})
+WINDOW_BWD_BUILD = (
+    "window_attention_bwd",
+    "bf16: one CTA per (window unit, head, sample), a warp per 16 rows, "
+    "mma.sync m16n8k16 (ldmatrix, movmatrix); cos, dq^ and dk^ as "
+    "split-bf16 hi.hi + hi.lo + lo.hi, dp and dv single bf16 products; "
+    "logits and dp twice per sample (stats sweep, gradient sweep); 16 x 16 "
+    "blocks whose template entries are all -1e30 skipped; per-sample "
+    "d_template and d_scale partials summed in batch order (a live-block "
+    "kernel before, a template-sum kernel after). f32 keeps the FMA rows, "
+    "cols and template kernels",
+    {"32": ("window_attention_bwd_bf16_kernel", "ILi32E"),
+     "live": ("window_attention_bwd_live_kernel",),
+     "template sum": ("window_attention_bwd_tmpl_sum_kernel",)})
+# the window backward entries' bound counts the function's work, not the
+# kernel's instructions
+WINDOW_BWD_NOTE = (
+    "bound_ms is the function's work (each input read once, each output "
+    "written once, 10 D FLOPs per live pair), not the kernel's "
+    "instructions: it computes cos and dp twice per sample and cos, dq^ "
+    "and dk^ as three bf16 products each")
 
 
 def _close(got, want, atol, rtol) -> float:
@@ -414,16 +455,11 @@ def window_work(qkv, template, banded: bool, bwd: bool) -> tuple:
     return io * (c3 + c) + tmpl, 4 * b * pairs * (c // h)
 
 
-def library_ms(kind, qkv, h, *, kv_valid=None, scale=None, template=None,
-               banded=False, d_out=None, iters=20) -> float:
-    """The yardstick: ms per call, by CUDA events, of the one PyTorch call
-    that computes a kernel's function on the same inputs,
-    ``F.scaled_dot_product_attention``, or with ``d_out`` its autograd
-    backward alone.  kind 'qkv': B1/B2 without scores (keys at or past
-    kv_valid masked); 'window': B5/B6 as SDPA over (q^ * scale[h], k^, v)
-    with the template (the band, chunk by chunk) as an additive mask and
-    no further scaling.  The inputs are prepared outside the timed calls.
-    The port never calls it."""
+def _sdpa_inputs(kind, qkv, h, kv_valid, scale, template, banded):
+    """(q, k, v, mask, softmax scale) of the library call for a kernel's
+    inputs: kind 'qkv' for B1-B3 (keys at or past kv_valid masked), 'window'
+    for B5/B6 as SDPA over (q^ * scale[h], k^, v) with the template (the
+    band, chunk by chunk) as an additive mask and no further scaling."""
     b, n, c3 = qkv.shape
     d = c3 // 3 // h
     q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, -1))
@@ -439,20 +475,36 @@ def library_ms(kind, qkv, h, *, kv_valid=None, scale=None, template=None,
         if banded:
             q, k, v = (t.reshape(b, -1, 128, d) for t in (q, k, v))
             mask = mask.reshape(1, -1, 128, 128)
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    if d_out is None:
-        def call():
-            return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=sm_scale)
-    else:
-        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                             scale=sm_scale)
-        g = d_out.reshape(b, n, h, d).transpose(1, 2).reshape(out.shape)
+    return (*(t.contiguous() for t in (q, k, v)), mask, sm_scale)
 
-        def call():
-            return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
-    with torch.no_grad() if d_out is None else contextlib.nullcontext():
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+LIBRARY_LOOPS = 5  # timed loops per backend of a backward's yardstick
+
+
+def library_ms(kind, qkv, h, *, kv_valid=None, scale=None, template=None,
+               banded=False, d_out=None, iters=20) -> tuple:
+    """The yardstick: (ms per call, SDPA backend) of the one PyTorch call
+    that computes a kernel's function on the same inputs
+    (``_sdpa_inputs``), ``F.scaled_dot_product_attention``, by CUDA events
+    around ``iters`` calls after a warm-up; the inputs are prepared outside
+    the timed calls.  The forward takes PyTorch's own dispatch (backend
+    None).  With ``d_out``, its autograd backward alone: its backend choice
+    with a mask is not pinned and spread 2.5-3.6x between runs, so each
+    backend that takes these inputs is timed under ``sdpa_kernel``, as the
+    median of LIBRARY_LOOPS loops, and the fastest is reported.  The port
+    never calls it."""
+    import statistics
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, n, c3 = qkv.shape
+    q, k, v, mask, sm_scale = _sdpa_inputs(kind, qkv, h, kv_valid, scale,
+                                           template, banded)
+
+    def timed(call) -> float:
         for _ in range(3):
             call()
         start = torch.cuda.Event(enable_timing=True)
@@ -462,7 +514,37 @@ def library_ms(kind, qkv, h, *, kv_valid=None, scale=None, template=None,
             call()
         end.record()
         torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+        return start.elapsed_time(end) / iters
+
+    if d_out is None:
+        with torch.no_grad():
+            return timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=sm_scale)), None
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    best, seen = None, []
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     scale=sm_scale)
+                g = d_out.reshape(b, n, h, -1).transpose(1, 2).reshape(out.shape)
+                loops = [timed(lambda: torch.autograd.grad(
+                    out, (q, k, v), g, retain_graph=True))
+                    for _ in range(LIBRARY_LOOPS)]
+        except RuntimeError:  # the backend does not take these inputs
+            continue
+        ms = statistics.median(loops)
+        seen.append(f"{name.lower()} {ms:.4f} ({min(loops):.4f}-"
+                    f"{max(loops):.4f})")
+        if best is None or ms < best[0]:
+            best = (ms, name.lower())
+    if best is None:
+        raise AssertionError(f"no SDPA backend takes the {kind} backward")
+    log(f"  library backward, {kind} B={b} N={n}: median (range) of "
+        f"{LIBRARY_LOOPS} loops, ms: " + ", ".join(seen))
+    return best
 
 
 def time_kernel():
@@ -488,7 +570,7 @@ def time_kernel():
                                torch.bfloat16)
             lib = "none (scores)"
             if mode is None:
-                lib_ms = library_ms("qkv", qkv, 12)
+                lib_ms, _ = library_ms("qkv", qkv, 12)
                 no_score[0] += calls * k
                 no_score[1] += calls * lib_ms
                 lib = f"{lib_ms:.4f} ms"
@@ -901,8 +983,8 @@ def path_kernels_vs_plain(walks):
             with torch.no_grad():
                 ms[call] = _turns(lambda: kern(qkv, h, mode, extra),
                                   lambda: plain(qkv, h, mode, extra))
-            yard[call] = (bnd, None if mode is not None else
-                          library_ms("qkv", qkv, h, kv_valid=kv))
+            yard[call] = (bnd, *((None, None) if mode is not None else
+                                 library_ms("qkv", qkv, h, kv_valid=kv)))
             log(f"{name} {where}: kernel {ms[call][0]:.4f} ms, plain "
                 f"{ms[call][1]:.4f} ms, library {yard[call][1]} ms, bound "
                 f"{bnd[0]:.4f} ms ({bnd[1]}); out abs err {eo:.3g}, score abs "
@@ -926,24 +1008,27 @@ def path_kernels_vs_plain(walks):
             raise AssertionError("backward kernel launch failed")
         r, c = _turns(rows, cols)
         ms[call] = (r, c, pair, plain)
-        yard[call] = (bnd, None if has_ds else
-                      library_ms("qkv", qkv, h, kv_valid=kv, d_out=d_out))
+        lib_bwd = (None, None) if has_ds else library_ms(
+            "qkv", qkv, h, kv_valid=kv, d_out=d_out)
+        yard[call] = (bnd, *lib_bwd)
         log(f"B3 {where} score cotangent {has_ds}: rows {r:.4f} + cols "
             f"{c:.4f} ms; through fused_qkv_attention_bwd {pair:.4f} ms, "
-            f"plain backward {plain:.4f} ms, library backward {yard[call][1]} "
-            f"ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"plain backward {plain:.4f} ms, library backward {lib_bwd[0]} "
+            f"ms ({lib_bwd[1]}), bound {bnd[0]:.4f} ms ({bnd[1]})")
     sums = {}
     for name, walk in walks.items():
         s = {"B1": [0.0, 0.0], "B2": [0.0, 0.0], "B3": [0.0] * 4}
         for key in ("B1", "B2", "B3"):
-            s[key + "bound"], s[key + "lib"] = {}, 0.0
+            s[key + "bound"], s[key + "lib"], s[key + "backends"] = {}, 0.0, set()
         for call in walk:
             key = "B3" if call[0] == "bwd" else "B1" if call[8] is None else "B2"
             s[key] = [a + t for a, t in zip(s[key], ms[call])]
-            (bms, by), lib_ms = yard[call]
+            (bms, by), lib_ms, backend = yard[call]
             s[key + "bound"][by] = s[key + "bound"].get(by, 0.0) + bms
             s[key + "lib"] = (None if lib_ms is None or s[key + "lib"] is None
                               else s[key + "lib"] + lib_ms)
+            if backend is not None:
+                s[key + "backends"].add(backend)
         sums[name] = s
         b1, b2, b3 = s["B1"], s["B2"], s["B3"]
         log(f"per b128 train step, {name}: B1 {b1[0]:.4f} ms (plain "
@@ -1092,9 +1177,10 @@ def _window_fns(wa, banded):
 def _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
                     f32_atol=F32_ATOL) -> tuple:
     """Kernel vs plain, forward and backward, on one input: (forward abs
-    err, backward abs err).  The f32 forward within ``f32_atol``, bf16 within
-    BF16_TOL; the backward's outputs d_q, d_k, d_v, d_scale and d_template
-    each within GRAD_*_REL of the tensor's largest |entry|."""
+    err, backward abs err, backward err / max|plain|, the largest over its
+    outputs).  The f32 forward within ``f32_atol``, bf16 within BF16_TOL;
+    the backward's outputs d_q, d_k, d_v, d_scale and d_template each within
+    GRAD_*_REL of the tensor's largest |entry|."""
     kern, plain, plain_bwd = _window_fns(wa, banded)
     with torch.no_grad():
         out, pout = kern(qkv, scale, tmpl), plain(qkv, scale, tmpl)
@@ -1109,8 +1195,10 @@ def _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
     parts = list(zip(("d_q", "d_k", "d_v"), got[0].chunk(3, -1),
                      want[0].chunk(3, -1)))
     parts += [("d_scale", got[1], want[1]), ("d_template", got[2], want[2])]
-    e_bwd = max(_rel_close(g, w, rel, f"{what} {name}") for name, g, w in parts)
-    return e_fwd, e_bwd
+    errs = [(_rel_close(g, w, rel, f"{what} {name}"), w.float().abs().max().item())
+            for name, g, w in parts]
+    return (e_fwd, max(e for e, _ in errs),
+            max(e / top if top else 0.0 for e, top in errs))
 
 
 def window_vs_plain() -> dict:
@@ -1119,6 +1207,7 @@ def window_vs_plain() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     worst = {"B5 fwd": 0.0, "B5 bwd": 0.0, "B6 fwd": 0.0, "B6 bwd": 0.0}
+    rel = {"B5": 0.0, "B6": 0.0}
     count = 0
     for h in (16, 4):
         for banded, ns in ((False, (64, 256)), (True, (128, 512))):
@@ -1129,10 +1218,12 @@ def window_vs_plain() -> dict:
                                 f"shift={shift} {dt}")
                         args = _window_inputs(2, h, 32, (n // 8, 8), shift,
                                               banded, dt, gen)
-                        ef, eb = _compare_window(wa, *args, banded, what)
+                        ef, eb, rb = _compare_window(wa, *args, banded, what)
                         key = "B6" if banded else "B5"
                         worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
                         worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
+                        if dt == torch.bfloat16:
+                            rel[key] = max(rel[key], rb)
                         count += 1
     # at the clamp: a logit's rounding error is the cosine's times the scale,
     # so the f32 forward's atol grows with it from F32_ATOL at the initial
@@ -1143,13 +1234,17 @@ def window_vs_plain() -> dict:
             what = f"{key} H=16 N={n} shift=(2, 0) {dt} scale={SCALE_CLAMP:g}"
             args = _window_inputs(2, 16, 32, (n // 8, 8), (2, 0), banded, dt,
                                   gen, scale_value=SCALE_CLAMP)
-            ef, eb = _compare_window(wa, *args, banded, what,
-                                     f32_atol=F32_ATOL * SCALE_CLAMP / 10.0)
+            ef, eb, rb = _compare_window(wa, *args, banded, what,
+                                         f32_atol=F32_ATOL * SCALE_CLAMP / 10.0)
             worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
             worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
+            if dt == torch.bfloat16:
+                rel[f"{key} at the clamp"] = rb
             count += 1
     log(f"window kernels vs plain at B=2, {count} cases (f32 and bf16): worst "
-        "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+        "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + "; bf16 backward, worst err / max|plain| over its outputs: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
     return worst
 
 
@@ -1259,6 +1354,7 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     per_call, worst = {}, {}
     for call in sorted({c for w in walks.values() for c in w}, key=str):
+        backend = None  # the library backward's SDPA backend
         if call[0] in ("fwd", "bwd"):
             kind, b, n, c3, dt, h, mode, extra, kv, has_ds = call
             if mode is not None or kv is not None or has_ds:
@@ -1271,7 +1367,7 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
                 with torch.no_grad():
                     k, p = _turns(lambda: qa.fused_qkv_attention(qkv, h, None, extra),
                                   lambda: qa.fused_qkv_attention_plain(qkv, h, None, extra))
-                lib = library_ms("qkv", qkv, h)
+                lib, _ = library_ms("qkv", qkv, h)
             else:
                 name = "B3"
                 d_out = torch.randn(b, n, c3 // 3, device="cuda",
@@ -1280,42 +1376,46 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
                 k, p = _turns(
                     lambda: qa.fused_qkv_attention_bwd(qkv, d_out, None, h, None, extra),
                     lambda: qa.fused_qkv_attention_bwd_plain(qkv, d_out, None, h, None, extra))
-                lib = library_ms("qkv", qkv, h, d_out=d_out)
+                lib, backend = library_ms("qkv", qkv, h, d_out=d_out)
         else:
             kind, b, n, c3, dt, h, banded = call
             name = ("B6" if banded else "B5") + (" fwd" if kind == "wfwd" else " bwd")
             qkv, scale, tmpl, d_out = _window_inputs(
                 b, h, c3 // 3 // h, (n // 8, 8), (2, 0), banded, dt, gen)
-            ef, eb = _compare_window(wa, qkv, scale, tmpl, d_out, banded,
-                                     f"{name} B={b} N={n}")
+            ef, eb, _ = _compare_window(wa, qkv, scale, tmpl, d_out, banded,
+                                        f"{name} B={b} N={n}")
             kern, plain, plain_bwd = _window_fns(wa, banded)
             if kind == "wfwd":
                 err = ef
                 with torch.no_grad():
                     k, p = _turns(lambda: kern(qkv, scale, tmpl),
                                   lambda: plain(qkv, scale, tmpl))
-                lib = library_ms("window", qkv, h, scale=scale, template=tmpl,
-                                 banded=banded)
+                lib, _ = library_ms("window", qkv, h, scale=scale,
+                                    template=tmpl, banded=banded)
             else:
                 err = eb
                 k, p = _turns(
                     lambda: wa.window_attention_bwd(qkv, scale, tmpl, d_out, banded),
                     lambda: plain_bwd(qkv, scale, tmpl, d_out))
-                lib = library_ms("window", qkv, h, scale=scale, template=tmpl,
-                                 banded=banded, d_out=d_out)
+                lib, backend = library_ms("window", qkv, h, scale=scale,
+                                          template=tmpl, banded=banded,
+                                          d_out=d_out)
             bnd = bound_ms(*window_work(qkv, tmpl, banded, kind == "wbwd"), dt)
         worst[name] = max(worst.get(name, 0.0), err)
-        per_call[call] = (name, k, p, lib, bnd)
+        per_call[call] = (name, k, p, lib, bnd, backend)
         log(f"{name} B={b} N={n} {dt}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-            f"library {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); abs err "
-            f"{err:.3g}")
+            f"library {lib:.4f} ms{f' ({backend})' if backend else ''}, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); abs err {err:.3g}")
     sums = {}
     for grid, walk in walks.items():
         s = {}
         for call in walk:
-            name, k, p, lib, (bms, by) = per_call[call]
+            name, k, p, lib, (bms, by), backend = per_call[call]
             e = s.setdefault(name, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
-                                    "library_ms": 0.0, "bound": {}})
+                                    "library_ms": 0.0, "bound": {},
+                                    "backends": set()})
+            if backend is not None:
+                e["backends"].add(backend)
             e["calls"] += 1
             e["ms"] += k
             e["plain_ms"] += p
@@ -1751,7 +1851,7 @@ def probes_vs_plain() -> tuple:
 
     times = {}
     qkv = inputs[128, 257, bf16]
-    attention = library_ms("qkv", qkv, p1.H)  # softmax attention, no scores
+    attention, _ = library_ms("qkv", qkv, p1.H)  # softmax attention, no scores
     for variant in p1.VARIANTS:
         with torch.no_grad():
             k, p = _turns(lambda: p1.variant_attention(qkv, variant),
@@ -1859,7 +1959,8 @@ def run_phases(tmp):
     b3_err = max(bwd_err, path_err["B3"], pre_err["B3"])
     b3 = dict(plain=step["B3"][3], bound=bound_of(step["B3bound"]),
               lib=step["B3lib"], per=per_step, pair_ms=step["B3"][2],
-              note=bwd_note)
+              note=bwd_note,
+              library_backend=sorted(step["B3backends"]))
     fwd_build = bf16_build("qkv_attention", "qkv_attention_fwd_bf16_kernel")
     kernels = [
         _entry("qkv_attention_fwd", "qkv_attention.cu", "tpat_tpu/ops/pallas_attention.py:121",
@@ -1881,12 +1982,14 @@ def run_phases(tmp):
                train_launches[2] + audioset[1] + esc50[1], b3_err,
                step["B3"][0], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"], note=bwd_note,
+               library_backend=b3["library_backend"],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_rows_bf16_kernel")),
         _entry("qkv_attention_bwd_cols", "qkv_attention_bwd.cu", bwd,
                train_launches[3] + audioset[2] + esc50[2], b3_err,
                step["B3"][1], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"], note=bwd_note,
+               library_backend=b3["library_backend"],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_cols_bf16_kernel")),
     ]
@@ -1900,14 +2003,16 @@ def run_phases(tmp):
             ("window_attention_banded_bwd", "B6 bwd", "AudioSet",
              "tpat_tpu/ops/pallas_window_attention.py:222")):
         e = pre_sums[grid][key]
-        source = ("window_attention.cu" if key.endswith("fwd")
-                  else "window_attention_bwd.cu")
+        fwd = key.endswith("fwd")
+        build = WINDOW_FWD_BUILD if fwd else WINDOW_BWD_BUILD
+        extra = {} if fwd else {"note": WINDOW_BWD_NOTE,
+                                "library_backend": sorted(e["backends"])}
         kernels.append(_entry(
-            name, source, replaces, window_launches[key],
+            name, build[0] + ".cu", replaces, window_launches[key],
             max(win_err[key], pre_err[key]), e["ms"], e["plain_ms"],
             bound_of(e["bound"]), e["library_ms"],
             f"one b{PRETRAIN_BATCH} bf16 MAE pretrain step at the {grid} grid "
-            f"({e['calls']} calls)"))
+            f"({e['calls']} calls)", **extra, **build_fields(*build)))
     ln_fwd = _sum_walk(ln_per, serve_walk)
     ln_bwd = _sum_walk(ln_per, [c for c in ln_walks[EPOCH_LABELS[4]]
                                 if c[0] == "lnbwd"])

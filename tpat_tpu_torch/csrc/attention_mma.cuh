@@ -1,7 +1,8 @@
-// Tensor-core pieces of the bf16 packed-qkv attention kernels
-// (qkv_attention.cu, B1/B2, and qkv_attention_bwd.cu, B3): 16-byte cp.async
-// tile copies, ldmatrix fragment loads, mma.sync m16n8k16 bf16 products with
-// f32 accumulation, and the quad reductions over the accumulator layout.
+// Tensor-core pieces of the bf16 attention kernels (qkv_attention.cu, B1/B2,
+// qkv_attention_bwd.cu, B3, and window_attention_bwd.cu, the B5/B6
+// backward): 16-byte cp.async tile copies, ldmatrix fragment loads, mma.sync
+// m16n8k16 bf16 products with f32 accumulation, movmatrix transposes of
+// fragments, and the quad reductions over the accumulator layout.
 //
 // Tiles are 64 rows of one head's D values (D a multiple of 16), bf16 in
 // shared memory with rows padded to kLd = D + 8 values: row r starts 16*r
@@ -172,6 +173,26 @@ __device__ __forceinline__ void to_a(uint32_t a[4], const float c[2][4]) {
   a[1] = pack_bf16(c[0][2], c[0][3]);
   a[2] = pack_bf16(c[1][0], c[1][1]);
   a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+
+// The transpose of an 8 x 8 b16 matrix held one register per lane in the
+// layout of a0 above (lane 4 g + t: row g, columns 2t..2t+1).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// The A fragment of the transpose of a 16 x 16 block from its A fragment:
+// each 8 x 8 quarter transposed, the two off-diagonal quarters swapped.
+__device__ __forceinline__ void transpose_a(uint32_t at[4],
+                                            const uint32_t a[4]) {
+  at[0] = movmatrix_trans(a[0]);
+  at[1] = movmatrix_trans(a[2]);
+  at[2] = movmatrix_trans(a[1]);
+  at[3] = movmatrix_trans(a[3]);
 }
 
 // Reductions over the 4 lanes of a quad (one accumulator row).

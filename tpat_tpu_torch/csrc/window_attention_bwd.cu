@@ -21,38 +21,70 @@
 //   d_template[h] = sum over b of dlog (dense (N, N); banded (N, 128));
 // d_qkv packed as [dq | dk | dv] in qkv's type, as the TPU kernel writes it.
 //
-// What is different on Hopper, and the design.  On the TPU the batch is the
-// innermost sequential grid axis, and d_scale and d_template ride it as
-// resident accumulators.  CTAs on the card run in no order, so, with no
-// atomics (the sums are the same from run to run) and nothing (B, H, N, N)
-// in device memory, three kernels run in turn on the stream:
-//   1. rows: one CTA per (b, h, 64-query tile).  It holds the logits of the
-//      tile's whole key window in shared memory, takes the exact softmax
-//      (row max m, sum l), sweeps V for delta = sum_j dp p, then sweeps K and
-//      V again for dlog and dq.  It writes dq and the f32 (B, H, 3, N)
-//      scratch [m | l | delta].
-//   2. cols: one CTA per (b, h, 64-key tile).  It walks the query tiles
-//      whose window holds its keys (every tile dense; the chunk's two
-//      banded), recomputes p from m and l (the same logit code, so the same
-//      bits) and dlog, and accumulates dk^ and dv in registers.  In the dense
-//      form these are sums over all N query rows; in the banded form every
-//      chunk is self-contained.
-//   3. template: one CTA per (h, 64-query tile, 64-key tile of that tile's
-//      window).  It loops over the batch in order, recomputing the tile's
-//      dlog, and sums d_template in registers and dlog * cos into one d_scale
-//      partial per CTA, which the wrapper sums (a second pass, in torch).
-//      Per-sample d_template partials would cost 134 MB at the ESC-50 grid;
-//      this keeps the batch sum on chip.
+// What is different on Hopper.  On the TPU the batch is the innermost
+// sequential grid axis, and d_scale and d_template ride it as resident
+// accumulators.  CTAs on the card run in no order, so every sum over the
+// batch is taken as per-sample partials summed afterwards in a fixed order:
+// no floating-point atomics, the same bits from run to run.
 //
 // What bounds it.  At the ESC-50 decoder (B = 32, H = 16, D = 32, N = 256,
 // bf16) a call must read qkv 25.2 MB, dO 8.4 MB and the template 4.2 MB and
 // write d_qkv 25.2 MB and d_template 4.2 MB: 67 MB, about 20 us at
-// 3.35 TB/s; the useful work is 10 N^2 D FLOPs per head.  At the AudioSet
-// decoder (N = 512, banded) about 126 MB, 38 us.  The three kernels recompute
-// the logits three times and dp four times, as f32 FMA loops with 4 x 4
-// register micro-tiles: FMA-bound, like the forward.  Tensor cores and fewer
-// sweeps are later work.
+// 3.35 TB/s.  The useful work is 10 D FLOPs per live pair (one whose
+// template entry is not the -1e30 exclusion), a few us on the tensor cores.
+// At the AudioSet decoder (N = 512, banded) about 126 MB, 38 us.
+//
+// bf16 (every pretrain step), one tensor-core design for both forms.  A CTA
+// takes one (window unit, head, sample): the unit is the row's whole key
+// window, the grid (dense, N <= 256) or one 128-token chunk (banded), so
+// its queries are its keys and it writes dq, dk and dv complete.  One warp
+// per 16 rows of the unit (W <= 256 rows: at most 16 warps).
+//   0. live: one CTA per (unit, head, 16 queries) marks each 16 x 16 block
+//      that holds a template entry above -1e29.  A block with none has
+//      p = 0 exactly, so dlog = 0 and it adds exact zeros to every sum:
+//      the kernels skip it, and its d_template is written 0.  (A query
+//      block with a row that has no live entry at all, where p is uniform,
+//      is kept whole.)  Window-major chunks hold whole windows of 16
+//      tokens, so a banded chunk keeps 8 of its 64 blocks; the ESC-50 grid
+//      (32 x 8 tokens, 4 x 4 windows) keeps 2 key blocks of each query
+//      block's 16, either shift.
+//   1. main: stage q, k, v, dO (16-byte cp.async), normalise q and k in
+//      f32 and split each into hi = bf16(x^) and lo = bf16(x^ - hi).  The
+//      three products whose operands are f32 in the TPU kernel (cos, dq^,
+//      dk^) run as three bf16 mma.sync m16n8k16 terms, hi.hi + hi.lo +
+//      lo.hi, with f32 accumulation; dp and dv are single bf16 products, as
+//      on the TPU.  Per sample the logits and dp are computed twice:
+//      a. stats sweep, warp w on query block w: cos and dp over the live
+//         key blocks, the row max m, sum l and D_run = sum exp(s - m) dp
+//         online (rescaled as l is), so delta = D_run / l;
+//      b. gradient sweep, warp w on key block w, the products taken with
+//         the keys as the A operand (cos^T = k^.q^T, dp^T = v.dO^T) so that
+//         p^T and dlog^T come out in the accumulator layout of the warp's
+//         16 keys: dv += round(p)^T.dO and dk^ += dcos^T.q^ straight from
+//         registers.  dq^ += dcos.k^ takes the same fragments transposed by
+//         movmatrix into an f32 accumulator of the query block in shared
+//         memory; at step t warp w takes query block (w + t) mod nb, so no
+//         two warps touch one block in a step (a barrier between steps).
+//      It writes dlog of its live blocks into a per-sample (B, H, N, W)
+//      f32 partial and one d_scale partial per CTA.
+//   2. template sum: d_template[h] = sum over b of the partials, in batch
+//      order, on the live blocks; 0 elsewhere.
+// f32 (the parity checks at 1e-4 of the largest gradient): tensor-core f32
+// would be TF32, so it keeps exact FMA kernels on f32 tiles with 4 x 4
+// register micro-tiles (as does bf16 at a dense grid over 256 tokens, which
+// no model path runs), three in turn:
+//   1. rows: one CTA per (b, h, 64-query tile): the exact softmax of the
+//      tile's whole window in shared memory, delta, then dlog and dq; writes
+//      dq and the f32 (B, H, 3, N) scratch [m | l | delta].
+//   2. cols: one CTA per (b, h, 64-key tile): walks the query tiles whose
+//      window holds its keys, recomputes p and dlog, sums dk^ and dv.
+//   3. template: one CTA per (h, 64-query tile, 64-key tile of the window):
+//      loops over the batch in order for d_template, and writes one d_scale
+//      partial.
 
+#include <cstdint>
+
+#include "attention_mma.cuh"
 #include "window_attention_common.cuh"
 
 namespace {
@@ -65,17 +97,55 @@ struct BwdArgs {
   const float* tmpl;
   const void* dout;
   void* dqkv;
-  float* stats;  // (B, H, 3, N): m | l | delta
+  float* stats;  // FMA kernels: (B, H, 3, N) m | l | delta
+  unsigned char* live;  // tensor cores: (H, units, nb, nb) live blocks
+  float* part;   // tensor cores: (B, H, N, W) per-sample dlog
   float* dtmpl;
   float* ds_part;  // (H, partials)
   int batch, n, num_heads, banded;
 };
 
-// Template CTAs per head: 64-query tiles times the 64-key tiles of a window.
-int partials(int n, int banded) {
+constexpr int kBlk = 16;         // rows of a warp's block (queries or keys)
+constexpr int kMaxWindow = 256;  // the tensor-core kernels' largest window
+constexpr float kDead = -1e29f;  // template entries at or below: p = 0
+
+// The bf16 tensor-core kernels take every banded geometry and a dense grid
+// of up to 256 tokens; the rest runs the FMA kernels.
+bool tensor_cores(int n, int dtype, int banded) {
+  return dtype == 1 && window_keys(n, banded) <= kMaxWindow;
+}
+
+__host__ __device__ __forceinline__ int units(int n, int banded) {
+  return banded ? n / kChunk : 1;
+}
+
+__host__ __device__ __forceinline__ int blocks(int n, int banded) {
+  return (window_keys(n, banded) + kBlk - 1) / kBlk;
+}
+
+// d_scale partials per head: tensor cores one per (sample, unit); FMA one
+// per template CTA (64-query tiles times the 64-key tiles of a window).
+int partials(int batch, int n, int banded, int dtype) {
+  if (tensor_cores(n, dtype, banded)) return batch * units(n, banded);
   const int row_tiles = (n + kTile - 1) / kTile;
   const int key_tiles = banded ? kChunk / kTile : row_tiles;
   return row_tiles * key_tiles;
+}
+
+// The live map's bytes, rounded up so that the partials after it stay
+// 256-byte aligned.
+size_t live_bytes(int n, int num_heads, int banded) {
+  const size_t nb = blocks(n, banded);
+  return (static_cast<size_t>(num_heads) * units(n, banded) * nb * nb + 255) /
+         256 * 256;
+}
+
+size_t scratch_bytes(int batch, int n, int num_heads, int dtype, int banded) {
+  if (tensor_cores(n, dtype, banded))
+    return live_bytes(n, num_heads, banded) +
+           static_cast<size_t>(batch) * num_heads * n *
+               window_keys(n, banded) * sizeof(float);
+  return static_cast<size_t>(batch) * num_heads * 3 * n * sizeof(float);
 }
 
 template <typename T, int D>
@@ -525,6 +595,424 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_tmpl_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores: live blocks, main, template sum
+// ---------------------------------------------------------------------------
+
+// 0. live: one CTA per (unit, head, query block qb).  live[qb][kb] = some
+// entry of the 16 x 16 block above kDead, or a row of qb with none at all.
+__global__ void __launch_bounds__(kThreads) window_attention_bwd_live_kernel(
+    const BwdArgs a) {
+  __shared__ unsigned char row_live[kBlk][kMaxWindow / kBlk];
+  const int w = window_keys(a.n, a.banded);
+  const int nb = blocks(a.n, a.banded);
+  const int unit = blockIdx.x;
+  const int h = blockIdx.y;
+  const int qb = blockIdx.z;
+  const int rows = min(kBlk, w - qb * kBlk);
+  const float* tm = a.tmpl + (static_cast<size_t>(h) * a.n +
+                              unit * (a.banded ? kChunk : 0) + qb * kBlk) *
+                                 w;
+  for (int i = threadIdx.x; i < rows * nb; i += blockDim.x) {
+    const int r = i / nb;
+    const int k0 = (i - r * nb) * kBlk;
+    bool any = false;
+    for (int j = k0; j < min(k0 + kBlk, w); ++j) any |= tm[r * w + j] > kDead;
+    row_live[r][i - r * nb] = any;
+  }
+  __syncthreads();
+  if (threadIdx.x < nb) {
+    const int kb = threadIdx.x;
+    bool any = false, dead_row = false;
+    for (int r = 0; r < rows; ++r) {
+      any |= row_live[r][kb] != 0;
+      bool row_any = false;
+      for (int k = 0; k < nb; ++k) row_any |= row_live[r][k] != 0;
+      dead_row |= !row_any;
+    }
+    a.live[((static_cast<size_t>(h) * gridDim.x + unit) * nb + qb) * nb + kb] =
+        any || dead_row;
+  }
+}
+
+// Shared memory of the main kernel for R = 16 nb staged rows: six bf16 tiles
+// (q^ hi, q^ lo, k^ hi, k^ lo, v, dO; rows padded to 40 values), the f32 dq^
+// accumulator of each query block in fragment order, five per-row vectors
+// (m, 1/l, delta, and the q and k normalisation factors), one d_scale sum
+// per warp and the live map.
+template <int D>
+struct TcSmem {
+  static constexpr int kLd = mma::Tile<D>::kLd;
+  static __host__ __device__ size_t tile(int rows) {
+    return static_cast<size_t>(rows) * kLd * 2;
+  }
+  static size_t bytes(int nb) {
+    const int rows = nb * kBlk;
+    return 6 * tile(rows) + static_cast<size_t>(rows) * D * 4 +
+           5 * static_cast<size_t>(rows) * 4 + kBlk * 4 + nb * nb;
+  }
+};
+
+// Rows [0, rows) of one head's section (row stride `stride` values) into a
+// padded tile; rows at or past `valid` are zero.  All threads.
+template <int D>
+__device__ __forceinline__ void stage_rows(mma::bf16* dst,
+                                           const mma::bf16* src,
+                                           size_t stride, int valid,
+                                           int rows) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks;
+    const int c = (i - r * kChunks) * 8;
+    const bool ok = r < valid;
+    mma::cp_async16(dst + r * TcSmem<D>::kLd + c,
+                    src + static_cast<size_t>(ok ? r : 0) * stride + c, ok);
+  }
+}
+
+// x <- x^ = x * rsqrt(max(sum x^2, 1e-24)) in f32 for one staged row, split
+// into hi = bf16(x^) (in place) and lo = bf16(x^ - hi); returns the factor.
+template <int D>
+__device__ __forceinline__ float split_row(mma::bf16* hi, mma::bf16* lo) {
+  float x[D];
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    x[d] = __bfloat162float(hi[d]);
+    s = fmaf(x[d], x[d], s);
+  }
+  const float f = rsqrtf(fmaxf(s, kEps2));
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float v = x[d] * f;
+    const mma::bf16 vh = __float2bfloat16(v);
+    hi[d] = vh;
+    lo[d] = __float2bfloat16(v - __bfloat162float(vh));
+  }
+  return f;
+}
+
+// c[j] = (A_hi + A_lo) . (B_hi + B_lo)^T without the lo.lo term, for the 16
+// rows of the A fragments against tile rows [n0 + 8j, n0 + 8j + 8): per
+// k-step hi.hi, hi.lo, lo.hi, f32 accumulation from zero.
+template <int D>
+__device__ __forceinline__ void split_nt(float c[2][4],
+                                         const uint32_t ahi[D / 16][4],
+                                         const uint32_t alo[D / 16][4],
+                                         const mma::bf16* bhi,
+                                         const mma::bf16* blo, int n0,
+                                         int lane) {
+  const int off = (n0 + (lane & 7) + ((lane >> 4) << 3)) * TcSmem<D>::kLd +
+                  ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t h[4], l[4];
+    mma::ldmatrix_x4(h, bhi + off + kk * 16);
+    mma::ldmatrix_x4(l, blo + off + kk * 16);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mma::mma_bf16(c[j], ahi[kk], h[2 * j], h[2 * j + 1]);
+      mma::mma_bf16(c[j], ahi[kk], l[2 * j], l[2 * j + 1]);
+      mma::mma_bf16(c[j], alo[kk], h[2 * j], h[2 * j + 1]);
+    }
+  }
+}
+
+// acc += (A_hi + A_lo) . (tile_hi + tile_lo)[k0 .. k0 + 16) without lo.lo.
+template <int D>
+__device__ __forceinline__ void split_nn(float acc[D / 8][4],
+                                         const uint32_t ahi[4],
+                                         const uint32_t alo[4],
+                                         const mma::bf16* thi,
+                                         const mma::bf16* tlo, int k0,
+                                         int lane) {
+  mma::product_nn<D>(acc, ahi, thi, k0, lane);
+  mma::product_nn<D>(acc, ahi, tlo, k0, lane);
+  mma::product_nn<D>(acc, alo, thi, k0, lane);
+}
+
+// The F.normalize VJP of a warp's 16 rows from row r0 of the staged x^
+// (hi + lo) in the accumulator layout, g <- (g - x^ <x^, g>) * fac[row],
+// then stored as bf16 rows of dst; rows at or past `valid` are skipped.
+template <int D>
+__device__ __forceinline__ void store_normalised(
+    mma::bf16* dst, size_t stride, float g[D / 8][4], const mma::bf16* xhi,
+    const mma::bf16* xlo, const float* fac, int r0, int valid, int lane) {
+  constexpr int ld = TcSmem<D>::kLd;
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + (lane >> 2) + 8 * i;
+    float xs[D / 8][2];
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int at = r * ld + 8 * j + t2 + e;
+        xs[j][e] = __bfloat162float(xhi[at]) + __bfloat162float(xlo[at]);
+        dot = fmaf(xs[j][e], g[j][2 * i + e], dot);
+      }
+    dot = mma::quad_sum(dot);
+    const float f = fac[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        g[j][2 * i + e] = (g[j][2 * i + e] - xs[j][e] * dot) * f;
+  }
+  mma::store_rows<D>(dst, stride, g, r0, valid, 1.f, lane);
+}
+
+// 1. main: one CTA per (unit, head, sample), 32 nb threads.
+template <int D>
+__global__ void __launch_bounds__(32 * kMaxWindow / kBlk)
+    window_attention_bwd_bf16_kernel(const BwdArgs a) {
+  using mma::bf16;
+  constexpr int ld = TcSmem<D>::kLd;
+  const int n = a.n;
+  const int w = window_keys(n, a.banded);
+  const int nb = blocks(n, a.banded);
+  const int rows = nb * kBlk;
+  const int unit = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = a.banded ? unit * kChunk : 0;  // the unit's first token
+  const int c = a.num_heads * D;
+  const size_t stride = 3 * static_cast<size_t>(c);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t tb = TcSmem<D>::tile(rows);
+  bf16* qhi = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qlo = reinterpret_cast<bf16*>(smem_raw + tb);
+  bf16* khi = reinterpret_cast<bf16*>(smem_raw + 2 * tb);
+  bf16* klo = reinterpret_cast<bf16*>(smem_raw + 3 * tb);
+  bf16* vt = reinterpret_cast<bf16*>(smem_raw + 4 * tb);
+  bf16* dot = reinterpret_cast<bf16*>(smem_raw + 5 * tb);
+  // dq^ accumulator, [query block][register][lane]
+  float* dqa = reinterpret_cast<float*>(smem_raw + 6 * tb);
+  float* mrow = dqa + rows * D;
+  float* irow = mrow + rows;  // 1 / l
+  float* drow = irow + rows;  // delta
+  float* qfac = drow + rows;
+  float* kfac = qfac + rows;
+  float* red = kfac + rows;
+  unsigned char* live = reinterpret_cast<unsigned char*>(red + kBlk);
+
+  const bf16* q_src = static_cast<const bf16*>(a.qkv) +
+                      (static_cast<size_t>(b) * n + row0) * stride +
+                      static_cast<size_t>(h) * D;
+  const bf16* do_src = static_cast<const bf16*>(a.dout) +
+                       (static_cast<size_t>(b) * n + row0) * c +
+                       static_cast<size_t>(h) * D;
+  stage_rows<D>(qhi, q_src, stride, w, rows);
+  stage_rows<D>(khi, q_src + c, stride, w, rows);
+  stage_rows<D>(vt, q_src + 2 * c, stride, w, rows);
+  stage_rows<D>(dot, do_src, c, w, rows);
+  mma::cp_async_commit();
+  const unsigned char* live_src =
+      a.live + (static_cast<size_t>(h) * gridDim.x + unit) * nb * nb;
+  for (int i = threadIdx.x; i < nb * nb; i += blockDim.x) live[i] = live_src[i];
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  {  // one thread per row of q (threads [0, rows)) and of k
+    const int r = threadIdx.x % rows;
+    if (threadIdx.x < rows)
+      qfac[r] = split_row<D>(qhi + r * ld, qlo + r * ld);
+    else
+      kfac[r] = split_row<D>(khi + r * ld, klo + r * ld);
+  }
+  __syncthreads();
+
+  const float* tm = a.tmpl + (static_cast<size_t>(h) * n + row0) * w;
+  float* part = a.part +
+                ((static_cast<size_t>(b) * a.num_heads + h) * n + row0) * w;
+  const float scale = a.scale[h];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+
+  // a. stats sweep: warp on query block `warp`
+  {
+    const int qb = warp;
+    uint32_t ah[D / 16][4], al[D / 16][4], da[D / 16][4];
+    mma::load_a<D>(ah, qhi, qb * kBlk, lane);
+    mma::load_a<D>(al, qlo, qb * kBlk, lane);
+    mma::load_a<D>(da, dot, qb * kBlk, lane);
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float d_run[2] = {0.f, 0.f};
+    for (int kb = 0; kb < nb; ++kb) {
+      if (!live[qb * nb + kb]) continue;
+      float s[2][4], dp[2][4];
+      split_nt<D>(s, ah, al, khi, klo, kb * kBlk, lane);
+      mma::product_nt<D>(dp, da, vt, kb * kBlk, lane);
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int row = qb * kBlk + g + 8 * i;
+          const int key = kb * kBlk + 8 * j + t2 + (e & 1);
+          s[j][e] = row < w && key < w
+                        ? logit(s[j][e], scale, tm[row * w + key])
+                        : -INFINITY;
+          mt[i] = fmaxf(mt[i], s[j][e]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], mma::quad_max(mt[i]));
+        const float alpha = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
+        l[i] *= alpha;
+        d_run[i] *= alpha;
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float ex =
+              s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[i]);
+          l[i] += ex;
+          d_run[i] = fmaf(ex, dp[j][e], d_run[i]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float l_row = mma::quad_sum(l[i]);
+      const float d_row = mma::quad_sum(d_run[i]);
+      if ((lane & 3) == 0) {
+        const int row = qb * kBlk + g + 8 * i;
+        mrow[row] = m[i];
+        irow[row] = 1.f / l_row;
+        drow[row] = d_row / l_row;
+      }
+    }
+    for (int i = 0; i < D / 2; ++i) dqa[(qb * kBlk * D) + i * 32 + lane] = 0.f;
+  }
+  __syncthreads();
+
+  // b. gradient sweep: warp on key block `warp`
+  const int kb = warp;
+  uint32_t ah[D / 16][4], al[D / 16][4], va[D / 16][4];
+  mma::load_a<D>(ah, khi, kb * kBlk, lane);
+  mma::load_a<D>(al, klo, kb * kBlk, lane);
+  mma::load_a<D>(va, vt, kb * kBlk, lane);
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  float ds = 0.f;
+  for (int t = 0; t < nb; ++t) {
+    const int qb = kb + t < nb ? kb + t : kb + t - nb;
+    if (live[qb * nb + kb]) {
+      float s[2][4], dp[2][4];
+      split_nt<D>(s, ah, al, qhi, qlo, qb * kBlk, lane);  // cos^T
+      mma::product_nt<D>(dp, va, dot, qb * kBlk, lane);   // dp^T
+      float p[2][4], gh[2][4], gl[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kb * kBlk + g + 8 * (e >> 1);
+          const int q = qb * kBlk + 8 * j + t2 + (e & 1);
+          float pv = 0.f, dl = 0.f;
+          if (key < w && q < w) {
+            const size_t at = static_cast<size_t>(q) * w + key;
+            pv = expf(logit(s[j][e], scale, tm[at]) - mrow[q]) * irow[q];
+            dl = pv * (dp[j][e] - drow[q]);
+            part[at] = dl;
+            ds = fmaf(dl, s[j][e], ds);
+          }
+          const float dc = dl * scale;
+          p[j][e] = pv;
+          gh[j][e] = dc;
+          gl[j][e] = dc - __bfloat162float(__float2bfloat16(dc));
+        }
+      uint32_t pa[4], gha[4], gla[4];
+      mma::to_a(pa, p);
+      mma::to_a(gha, gh);
+      mma::to_a(gla, gl);
+      mma::product_nn<D>(dv, pa, dot, qb * kBlk, lane);
+      split_nn<D>(dk, gha, gla, qhi, qlo, qb * kBlk, lane);
+      uint32_t tha[4], tla[4];  // dcos of (queries, keys)
+      mma::transpose_a(tha, gha);
+      mma::transpose_a(tla, gla);
+      float* acc_s = dqa + qb * kBlk * D + lane;
+      float acc[D / 8][4];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = acc_s[(4 * j + e) * 32];
+      split_nn<D>(acc, tha, tla, khi, klo, kb * kBlk, lane);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_s[(4 * j + e) * 32] = acc[j][e];
+    }
+    __syncthreads();  // query block ownership moves on
+  }
+
+  bf16* dst = static_cast<bf16*>(a.dqkv) +
+              (static_cast<size_t>(b) * n + row0) * stride +
+              static_cast<size_t>(h) * D;
+  store_normalised<D>(dst + c, stride, dk, khi, klo, kfac, kb * kBlk, w, lane);
+  mma::store_rows<D>(dst + 2 * c, stride, dv, kb * kBlk, w, 1.f, lane);
+  {
+    const int qb = warp;
+    const float* acc_s = dqa + qb * kBlk * D + lane;
+    float dq[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[j][e] = acc_s[(4 * j + e) * 32];
+    store_normalised<D>(dst, stride, dq, qhi, qlo, qfac, qb * kBlk, w, lane);
+  }
+  ds = warp_sum(ds);
+  if (lane == 0) red[warp] = ds;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int i = 0; i < nb; ++i) sum += red[i];
+    a.ds_part[static_cast<size_t>(h) * a.batch * gridDim.x +
+              static_cast<size_t>(b) * gridDim.x + unit] = sum;
+  }
+}
+
+// 2. template sum: d_template = sum over the batch of the partials, in batch
+// order, on the live blocks; 0 on the others.  One thread per entry.
+__global__ void __launch_bounds__(kThreads)
+    window_attention_bwd_tmpl_sum_kernel(const BwdArgs a) {
+  const int n = a.n;
+  const int w = window_keys(n, a.banded);
+  const int nb = blocks(n, a.banded);
+  const size_t plane = static_cast<size_t>(n) * w;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= a.num_heads * plane) return;
+  const int h = static_cast<int>(idx / plane);
+  const int row = static_cast<int>((idx - h * plane) / w);
+  const int key = static_cast<int>(idx % w);
+  const int unit = a.banded ? row / kChunk : 0;
+  const int r = row - (a.banded ? unit * kChunk : 0);
+  const bool is_live =
+      a.live[((static_cast<size_t>(h) * units(n, a.banded) + unit) * nb +
+              r / kBlk) * nb + key / kBlk] != 0;
+  float sum = 0.f;
+  if (is_live)
+#pragma unroll 8
+    for (int b = 0; b < a.batch; ++b)
+      sum += a.part[static_cast<size_t>(b) * a.num_heads * plane + idx];
+  a.dtmpl[idx] = sum;
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -551,16 +1039,51 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   err = launch_one(window_attention_bwd_cols_kernel<T, D>, per_sample,
                    cols_smem_bytes<D>(), a, stream);
   if (err != cudaSuccess) return err;
-  const dim3 tmpl_grid(tiles, partials(a.n, a.banded) / tiles, a.num_heads);
+  const dim3 tmpl_grid(tiles, partials(a.batch, a.n, a.banded, 0) / tiles,
+                       a.num_heads);
   return launch_one(window_attention_bwd_tmpl_kernel<T, D>, tmpl_grid,
                     tmpl_smem_bytes<D>(), a, stream);
 }
 
+template <int D>
+cudaError_t launch_bf16(const BwdArgs& a, cudaStream_t stream) {
+  const int u = units(a.n, a.banded);
+  const int nb = blocks(a.n, a.banded);
+  window_attention_bwd_live_kernel<<<dim3(u, a.num_heads, nb), kThreads, 0,
+                                     stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = window_attention_bwd_bf16_kernel<D>;
+  const size_t smem = TcSmem<D>::bytes(nb);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(u, a.num_heads, a.batch), 32 * nb, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t entries =
+      static_cast<size_t>(a.num_heads) * a.n * window_keys(a.n, a.banded);
+  auto sum = window_attention_bwd_tmpl_sum_kernel;
+  sum<<<static_cast<unsigned>((entries + kThreads - 1) / kThreads), kThreads,
+        0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The number of d_scale partials per head the backward writes.
-extern "C" int tpat_window_attention_bwd_partials(int n, int banded) {
-  return partials(n, banded);
+// The number of d_scale partials per head the backward writes, and the bytes
+// of the scratch it needs.
+extern "C" int tpat_window_attention_bwd_partials(int batch, int n, int banded,
+                                                  int dtype) {
+  return partials(batch, n, banded, dtype);
+}
+
+extern "C" long long tpat_window_attention_bwd_scratch_bytes(
+    int batch, int n, int num_heads, int dtype, int banded) {
+  return static_cast<long long>(
+      scratch_bytes(batch, n, num_heads, dtype, banded));
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  qkv: (batch, n, 3 C) contiguous;
@@ -568,28 +1091,38 @@ extern "C" int tpat_window_attention_bwd_partials(int n, int banded) {
 // (num_heads, n, 128) f32 with n % 128 == 0 (banded = 1); dout: (batch, n, C)
 // in qkv's dtype.  Writes dqkv (batch, n, 3 C) in qkv's dtype, dtmpl (the
 // template's shape, f32, summed over the batch) and ds_part (num_heads,
-// tpat_window_attention_bwd_partials(n, banded)) f32, whose rows sum to
-// d_scale; stats is a (batch, num_heads, 3, n) f32 scratch.  Launches the
-// three kernels in turn on `stream`, synchronises nothing, and returns the
-// first CUDA error (0 on success).
+// tpat_window_attention_bwd_partials(...)) f32, whose rows sum to d_scale;
+// scratch holds tpat_window_attention_bwd_scratch_bytes(...) bytes, 256-byte
+// aligned.  Launches its kernels in turn on `stream` (bf16 at a window of up
+// to 256 keys: live, main, template sum; else the FMA rows, cols,
+// template), synchronises nothing, and returns the first CUDA error (0 on
+// success).
 extern "C" int tpat_window_attention_bwd(
     const void* qkv, const void* scale, const void* tmpl, const void* dout,
-    void* dqkv, void* stats, void* dtmpl, void* ds_part, int batch, int n,
+    void* dqkv, void* scratch, void* dtmpl, void* ds_part, int batch, int n,
     int num_heads, int head_dim, int dtype, int banded, void* stream) {
   if (batch < 1 || batch > 65535 || n < 1 || num_heads < 1 ||
       num_heads > 65535 || (banded != 0 && banded != 1) ||
       (banded && n % kChunk != 0) || qkv == nullptr || scale == nullptr ||
       tmpl == nullptr || dout == nullptr || dqkv == nullptr ||
-      stats == nullptr || dtmpl == nullptr || ds_part == nullptr) {
+      scratch == nullptr || dtmpl == nullptr || ds_part == nullptr) {
     return cudaErrorInvalidValue;
   }
+  const bool tc = tensor_cores(n, dtype, banded);
+  auto* bytes = static_cast<unsigned char*>(scratch);
   const BwdArgs a{qkv, static_cast<const float*>(scale),
                   static_cast<const float*>(tmpl), dout, dqkv,
-                  static_cast<float*>(stats), static_cast<float*>(dtmpl),
-                  static_cast<float*>(ds_part), batch, n, num_heads, banded};
+                  tc ? nullptr : reinterpret_cast<float*>(bytes),
+                  tc ? bytes : nullptr,
+                  tc ? reinterpret_cast<float*>(
+                           bytes + live_bytes(n, num_heads, banded))
+                     : nullptr,
+                  static_cast<float*>(dtmpl), static_cast<float*>(ds_part),
+                  batch, n, num_heads, banded};
   const auto s = static_cast<cudaStream_t>(stream);
   // head_dim 32 only: the MAE decoder's 512 / 16, the one width the path runs
   if (head_dim != 32) return cudaErrorInvalidValue;
+  if (tc) return launch_bf16<32>(a, s);
   if (dtype == 0) return launch<float, 32>(a, s);
   if (dtype == 1) return launch<__nv_bfloat16, 32>(a, s);
   return cudaErrorInvalidValue;

@@ -32,13 +32,15 @@ summed over the batch, as the JAX custom VJPs do:
 
 - on a CUDA tensor the forward launches ``csrc/window_attention.cu`` and the
   backward ``csrc/window_attention_bwd.cu`` (built with nvcc at first use),
-  or raise;
+  or raise.  In bf16 the backward runs on the tensor cores (split-bf16
+  products where the TPU kernel's operands are f32); in f32 it keeps exact
+  FMA kernels;
 - on a CPU tensor they run the plain versions beside them.  That is the
   only case the plain versions serve: nothing falls back from the device.
 
 Launch counters (kernel launches, never plain calls): ``launches`` and
 ``banded_launches`` (forwards), ``bwd_launches`` and ``banded_bwd_launches``
-(one per backward, which runs the backward source's three kernels).
+(one per backward, which runs the backward source's kernels in turn).
 
 The layout arithmetic ``supports`` / ``supports_banded`` / ``_batch_group``
 is the JAX module's TPU VMEM criterion, kept verbatim so that a model's
@@ -400,8 +402,10 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.tpat_window_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.tpat_window_attention_bwd_partials.argtypes = [ctypes.c_int] * 2
+    lib.tpat_window_attention_bwd_partials.argtypes = [ctypes.c_int] * 4
     lib.tpat_window_attention_bwd_partials.restype = ctypes.c_int
+    lib.tpat_window_attention_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.tpat_window_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -458,9 +462,10 @@ def _forward_kernel(qkv, scale, template, banded):
 
 
 def _backward_kernels(qkv, scale, template, d_out, banded):
-    """Launch the backward: rows (dq and the softmax statistics), cols (dk
-    and dv), template (d_template and per-block d_scale partials, summed
-    here)."""
+    """Launch the backward source: in bf16 the tensor-core kernels (live
+    blocks; dq, dk, dv and per-sample d_template and d_scale partials;
+    the template sum), else the FMA kernels (rows, cols, template).  The
+    d_scale partials are summed here."""
     global bwd_launches, banded_bwd_launches
     _check_device(qkv, scale, template, banded)
     b, n, c3 = qkv.shape
@@ -475,16 +480,20 @@ def _backward_kernels(qkv, scale, template, d_out, banded):
     d_out = d_out.contiguous()
     dev = qkv.device
     lib = _bwd_library()
-    parts = lib.tpat_window_attention_bwd_partials(n, int(banded))
+    dtype = _DTYPES[qkv.dtype]
+    parts = lib.tpat_window_attention_bwd_partials(b, n, int(banded), dtype)
     d_qkv = torch.empty_like(qkv)
-    stats = torch.empty((b, h, 3, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        lib.tpat_window_attention_bwd_scratch_bytes(b, n, h, dtype,
+                                                    int(banded)),
+        dtype=torch.uint8, device=dev)
     d_template = torch.empty_like(template)
     ds_parts = torch.empty((h, parts), dtype=torch.float32, device=dev)
     err = lib.tpat_window_attention_bwd(
         qkv.data_ptr(), scale.data_ptr(), template.data_ptr(), d_out.data_ptr(),
-        d_qkv.data_ptr(), stats.data_ptr(), d_template.data_ptr(),
-        ds_parts.data_ptr(), b, n, h, c3 // 3 // h, _DTYPES[qkv.dtype],
-        int(banded), _stream(dev),
+        d_qkv.data_ptr(), scratch.data_ptr(), d_template.data_ptr(),
+        ds_parts.data_ptr(), b, n, h, c3 // 3 // h, dtype, int(banded),
+        _stream(dev),
     )
     if err != 0:
         raise RuntimeError(
