@@ -52,13 +52,16 @@ printing a result:
     losses, every parameter gradient and the tokens kept at each drop
     block;
 11. build: ``tpat_tpu_torch/csrc/window_attention.cu`` and
-    ``window_attention_bwd.cu`` (with phases 2 and 6's, all four nvcc
-    started together), with their ptxas reports;
+    ``window_attention_bwd.cu`` (both on ``window_attention_tc.cuh``; one
+    nvcc per source of the port, all seven started together), with their
+    ptxas reports;
 12. window kernels vs plain at B=2: the dense form (``fused_window_attention``)
     at N in {64, 256} and the banded form at N in {128, 512}, shifts (0,0)
     and (2,0), H=16/D=32 and H=4/D=32, f32 and bf16, plus one case per form
-    and dtype at the scale clamp of 100 (f32 atol scaled with the scale);
-    the forward and the backward's d_qkv, d_scale and d_template / d_band;
+    and dtype at the scale clamp of 100 (f32 atol scaled with the scale) and
+    one bf16 case per form whose template has a row with no live entry
+    (uniform p, its query block kept whole by the tensor-core kernels); the
+    forward and the backward's d_qkv, d_scale and d_template / d_band;
 13. pretrain path at full width: ``engine/pretrain.py``'s train step on
     ``mae_vit_base_dec512d8b`` (bf16, b32, mask ratio 0.8, seeded weights),
     a few steps on one fixed batch at the AudioSet grid (target length
@@ -69,7 +72,8 @@ printing a result:
     partitioned plain path (``window_attention_impl='xla'``), in turns;
 14. every kernel of the pretrain path vs plain at each recorded B=32
     geometry (the window kernels, B1 and B3 at N = 103 and 52), compared and
-    timed with CUDA events in turns, beside the library call;
+    timed with CUDA events in turns, beside the library call; the window
+    forward also by its kernels' device time (``torch.profiler``);
 15. one f32 pretrain step at each grid, the window kernels vs 'xla', from
     the same weights, batch and step generator (the same masks and
     dropout): the loss and every parameter gradient;
@@ -101,9 +105,9 @@ printing a result:
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*`` and
     ``window_attention_*`` entries also give the design of their bf16 build
-    and the registers and spill bytes of its kernels (per head_dim) from the
-    ptxas report, and the backward entries the SDPA backend of their
-    library call.
+    and the registers and spill bytes of its kernels (per head_dim; the
+    window forward's FMA kernel too) from the ptxas report, and the
+    backward and window entries the SDPA backend of their library call.
 
 Beside each kernel's time the script computes its bound, the least time the
 H100 could take for the same work on these inputs (the larger of the bytes
@@ -111,9 +115,9 @@ the call must move at 3.35 TB/s and the FLOPs its data needs at 989 TFLOP/s
 bf16, or 67 TFLOP/s for LayerNorm's f32 arithmetic), and times the one
 PyTorch call that computes the same function, where there is one
 (``library_ms``; a yardstick that the port never calls).  A backward's
-library call is SDPA's autograd backward under each backend that takes
-its inputs, the median of several timed loops, the fastest reported with
-its backend's name.
+library call is SDPA's autograd backward, and the window forward's SDPA
+itself, under each backend that takes its inputs, the median of several
+timed loops, the fastest reported with its backend's name.
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training and pretrain paths, and the probes' mains), error,
@@ -274,9 +278,16 @@ def bf16_build(name: str, kernel: str) -> dict:
 
 WINDOW_FWD_BUILD = (
     "window_attention",
-    "f32 FMA loops on 4 x 4 register micro-tiles over f32 tiles in shared "
-    "memory, bf16 widened at the load (both dtypes)",
-    {"32": ("window_attention_fwd_kernel", "__nv_bfloat16Li32E")})
+    "bf16: a live-block kernel, then one CTA per (window unit, head, sample), "
+    "a warp per 16 query rows, q, k and v staged once (cp.async), "
+    "mma.sync m16n8k16 (ldmatrix); cos as split-bf16 hi.hi + hi.lo + lo.hi; "
+    "two sweeps over the live 16 x 16 blocks only (m and l online, the "
+    "backward's stats code; then p normalised in f32, rounded to bf16, "
+    "round(p).v as one bf16 product). f32 keeps the FMA kernel (4 x 4 "
+    "register micro-tiles over f32 tiles)",
+    {"32": ("window_attention_fwd_bf16_kernel", "ILi32E"),
+     "live": ("window_attention_live_kernel",),
+     "fma f32": ("window_attention_fwd_kernelIfLi32E",)})
 WINDOW_BWD_BUILD = (
     "window_attention_bwd",
     "bf16: one CTA per (window unit, head, sample), a warp per 16 rows, "
@@ -288,8 +299,13 @@ WINDOW_BWD_BUILD = (
     "kernel before, a template-sum kernel after). f32 keeps the FMA rows, "
     "cols and template kernels",
     {"32": ("window_attention_bwd_bf16_kernel", "ILi32E"),
-     "live": ("window_attention_bwd_live_kernel",),
+     "live": ("window_attention_live_kernel",),
      "template sum": ("window_attention_bwd_tmpl_sum_kernel",)})
+WINDOW_FWD_NOTE = (
+    "ms by CUDA events around each call's wrapper, which at tens of "
+    "microseconds a call includes the host's launch rate; device_ms is the "
+    "summed duration of the call's two kernels (live map and main), "
+    "torch.profiler")
 # the window backward entries' bound counts the function's work, not the
 # kernel's instructions
 WINDOW_BWD_NOTE = (
@@ -489,12 +505,12 @@ def library_ms(kind, qkv, h, *, kv_valid=None, scale=None, template=None,
     that computes a kernel's function on the same inputs
     (``_sdpa_inputs``), ``F.scaled_dot_product_attention``, by CUDA events
     around ``iters`` calls after a warm-up; the inputs are prepared outside
-    the timed calls.  The forward takes PyTorch's own dispatch (backend
-    None).  With ``d_out``, its autograd backward alone: its backend choice
-    with a mask is not pinned and spread 2.5-3.6x between runs, so each
-    backend that takes these inputs is timed under ``sdpa_kernel``, as the
-    median of LIBRARY_LOOPS loops, and the fastest is reported.  The port
-    never calls it."""
+    the timed calls.  A 'qkv' forward takes PyTorch's own dispatch (backend
+    None).  A 'window' forward, and with ``d_out`` the autograd backward
+    alone: the backend choice with a mask is not pinned and spread
+    2.5-3.6x between runs, so each backend that takes these inputs is timed
+    under ``sdpa_kernel``, as the median of LIBRARY_LOOPS loops, and the
+    fastest is reported.  The port never calls it."""
     import statistics
     import warnings
 
@@ -516,23 +532,32 @@ def library_ms(kind, qkv, h, *, kv_valid=None, scale=None, template=None,
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    if d_out is None:
+    def forward():
         with torch.no_grad():
-            return timed(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=sm_scale)), None
-    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                           scale=sm_scale)
+
+    if d_out is None and kind == "qkv":
+        return timed(forward), None
+    if d_out is not None:
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     best, seen = None, []
     for name in SDPA_BACKENDS:
         try:
             with sdpa_kernel(getattr(SDPBackend, name)), \
                     warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                     scale=sm_scale)
-                g = d_out.reshape(b, n, h, -1).transpose(1, 2).reshape(out.shape)
-                loops = [timed(lambda: torch.autograd.grad(
-                    out, (q, k, v), g, retain_graph=True))
-                    for _ in range(LIBRARY_LOOPS)]
+                call = forward
+                if d_out is not None:
+                    out = F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=sm_scale)
+                    g = d_out.reshape(b, n, h, -1).transpose(1, 2).reshape(
+                        out.shape)
+
+                    def call():
+                        torch.autograd.grad(out, (q, k, v), g,
+                                            retain_graph=True)
+                loops = [timed(call) for _ in range(LIBRARY_LOOPS)]
         except RuntimeError:  # the backend does not take these inputs
             continue
         ms = statistics.median(loops)
@@ -540,9 +565,10 @@ def library_ms(kind, qkv, h, *, kv_valid=None, scale=None, template=None,
                     f"{max(loops):.4f})")
         if best is None or ms < best[0]:
             best = (ms, name.lower())
+    what = "forward" if d_out is None else "backward"
     if best is None:
-        raise AssertionError(f"no SDPA backend takes the {kind} backward")
-    log(f"  library backward, {kind} B={b} N={n}: median (range) of "
+        raise AssertionError(f"no SDPA backend takes the {kind} {what}")
+    log(f"  library {what}, {kind} B={b} N={n}: median (range) of "
         f"{LIBRARY_LOOPS} loops, ms: " + ", ".join(seen))
     return best
 
@@ -1241,6 +1267,19 @@ def window_vs_plain() -> dict:
             if dt == torch.bfloat16:
                 rel[f"{key} at the clamp"] = rb
             count += 1
+    # a template row with no live entry (uniform p over its window): the
+    # tensor-core kernels keep its 16-row query block whole
+    for banded, n in ((False, 256), (True, 512)):
+        key = "B6" if banded else "B5"
+        what = f"{key} H=16 N={n} shift=(2, 0) bf16, row 5 all -1e30"
+        qkv, scale, tmpl, d_out = _window_inputs(
+            2, 16, 32, (n // 8, 8), (2, 0), banded, torch.bfloat16, gen)
+        tmpl[:, 5] = -1e30
+        ef, eb, rb = _compare_window(wa, qkv, scale, tmpl, d_out, banded, what)
+        worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
+        worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
+        rel[f"{key} row without a live entry"] = rb
+        count += 1
     log(f"window kernels vs plain at B=2, {count} cases (f32 and bf16): worst "
         "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + "; bf16 backward, worst err / max|plain| over its outputs: "
@@ -1354,7 +1393,8 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     per_call, worst = {}, {}
     for call in sorted({c for w in walks.values() for c in w}, key=str):
-        backend = None  # the library backward's SDPA backend
+        backend = None  # the library call's SDPA backend, where it is chosen
+        dev = None  # the window forward's device ms (torch.profiler)
         if call[0] in ("fwd", "bwd"):
             kind, b, n, c3, dt, h, mode, extra, kv, has_ds = call
             if mode is not None or kv is not None or has_ds:
@@ -1390,8 +1430,9 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
                 with torch.no_grad():
                     k, p = _turns(lambda: kern(qkv, scale, tmpl),
                                   lambda: plain(qkv, scale, tmpl))
-                lib, _ = library_ms("window", qkv, h, scale=scale,
-                                    template=tmpl, banded=banded)
+                    dev = _device_ms(lambda: kern(qkv, scale, tmpl))
+                lib, backend = library_ms("window", qkv, h, scale=scale,
+                                          template=tmpl, banded=banded)
             else:
                 err = eb
                 k, p = _turns(
@@ -1402,20 +1443,24 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
                                           d_out=d_out)
             bnd = bound_ms(*window_work(qkv, tmpl, banded, kind == "wbwd"), dt)
         worst[name] = max(worst.get(name, 0.0), err)
-        per_call[call] = (name, k, p, lib, bnd, backend)
-        log(f"{name} B={b} N={n} {dt}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-            f"library {lib:.4f} ms{f' ({backend})' if backend else ''}, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]}); abs err {err:.3g}")
+        per_call[call] = (name, k, p, lib, bnd, backend, dev)
+        log(f"{name} B={b} N={n} {dt}: kernel {k:.4f} ms"
+            f"{f' (device {dev:.4f})' if dev is not None else ''}, plain "
+            f"{p:.4f} ms, library {lib:.4f} ms"
+            f"{f' ({backend})' if backend else ''}, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}); abs err {err:.3g}")
     sums = {}
     for grid, walk in walks.items():
         s = {}
         for call in walk:
-            name, k, p, lib, (bms, by), backend = per_call[call]
+            name, k, p, lib, (bms, by), backend, dev = per_call[call]
             e = s.setdefault(name, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
                                     "library_ms": 0.0, "bound": {},
-                                    "backends": set()})
+                                    "backends": set(), "device_ms": 0.0})
             if backend is not None:
                 e["backends"].add(backend)
+            if dev is not None:
+                e["device_ms"] += dev
             e["calls"] += 1
             e["ms"] += k
             e["plain_ms"] += p
@@ -2005,8 +2050,11 @@ def run_phases(tmp):
         e = pre_sums[grid][key]
         fwd = key.endswith("fwd")
         build = WINDOW_FWD_BUILD if fwd else WINDOW_BWD_BUILD
-        extra = {} if fwd else {"note": WINDOW_BWD_NOTE,
-                                "library_backend": sorted(e["backends"])}
+        extra = {"library_backend": sorted(e["backends"])}
+        if fwd:
+            extra.update(device_ms=e["device_ms"], note=WINDOW_FWD_NOTE)
+        else:
+            extra["note"] = WINDOW_BWD_NOTE
         kernels.append(_entry(
             name, build[0] + ".cu", replaces, window_launches[key],
             max(win_err[key], pre_err[key]), e["ms"], e["plain_ms"],

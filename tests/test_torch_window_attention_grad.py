@@ -63,27 +63,17 @@ def _live_map(tm):
     return blocks | dead_row.reshape(nb, BLK).any(dim=1)[:, None]
 
 
-def _unit(q, k, v, do, tm, scale, live):
-    """One CTA: (dq, dk, dv) of the unit's W rows (f32, before the final
-    rounding), its dlog partial (W, W) and its d_scale partial."""
-    w, d = q.shape
+def _blocks(nb):
+    return [slice(i * BLK, (i + 1) * BLK) for i in range(nb)]
+
+
+def _stats(qh, ql, kh, kl, do, v, tm, ok, scale, live):
+    """The stats sweep of one unit (rows padded to 16 nb), query block by
+    query block over the live key blocks: the row max m, the sum l and
+    D_run = sum exp(s - m) dp, online."""
     nb = live.shape[0]
     r = nb * BLK
-
-    def pad(x):
-        return torch.cat([x, x.new_zeros(r - w, *x.shape[1:])])
-
-    q, k, v, do = (pad(x) for x in (q, k, v, do))
-    tm = torch.nn.functional.pad(tm, (0, r - w, 0, r - w))
-    ok = torch.zeros(r, r, dtype=torch.bool)
-    ok[:w, :w] = True
-    qn, qf = _normalise(q)
-    kn, kf = _normalise(k)
-    qh, ql = _split(qn)
-    kh, kl = _split(kn)
-    blk = [slice(i * BLK, (i + 1) * BLK) for i in range(nb)]
-
-    # a. stats sweep, query block by query block
+    blk = _blocks(nb)
     m = torch.full((r,), -math.inf)
     l = torch.zeros(r)
     d_run = torch.zeros(r)
@@ -103,6 +93,31 @@ def _unit(q, k, v, do, tm, scale, live):
             l[rows] = l[rows] * alpha + e.sum(dim=1)
             d_run[rows] = d_run[rows] * alpha + (e * dp).sum(dim=1)
             m[rows] = m_new
+    return m, l, d_run
+
+
+def _unit(q, k, v, do, tm, scale, live):
+    """One CTA: (dq, dk, dv) of the unit's W rows (f32, before the final
+    rounding), its dlog partial (W, W) and its d_scale partial."""
+    w, d = q.shape
+    nb = live.shape[0]
+    r = nb * BLK
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros(r - w, *x.shape[1:])])
+
+    q, k, v, do = (pad(x) for x in (q, k, v, do))
+    tm = torch.nn.functional.pad(tm, (0, r - w, 0, r - w))
+    ok = torch.zeros(r, r, dtype=torch.bool)
+    ok[:w, :w] = True
+    qn, qf = _normalise(q)
+    kn, kf = _normalise(k)
+    qh, ql = _split(qn)
+    kh, kl = _split(kn)
+    blk = _blocks(nb)
+
+    # a. stats sweep, query block by query block
+    m, l, d_run = _stats(qh, ql, kh, kl, do, v, tm, ok, scale, live)
     inv = 1.0 / l
     delta = d_run / l
 

@@ -34,11 +34,13 @@
 // template entry is not the -1e30 exclusion), a few us on the tensor cores.
 // At the AudioSet decoder (N = 512, banded) about 126 MB, 38 us.
 //
-// bf16 (every pretrain step), one tensor-core design for both forms.  A CTA
-// takes one (window unit, head, sample): the unit is the row's whole key
-// window, the grid (dense, N <= 256) or one 128-token chunk (banded), so
-// its queries are its keys and it writes dq, dk and dv complete.  One warp
-// per 16 rows of the unit (W <= 256 rows: at most 16 warps).
+// bf16 (every pretrain step), one tensor-core design for both forms, whose
+// live map, staging, split and stats sweep are window_attention_tc.cuh's,
+// shared with the forward.  A CTA takes one (window unit, head, sample):
+// the unit is the row's whole key window, the grid (dense, N <= 256) or one
+// 128-token chunk (banded), so its queries are its keys and it writes dq,
+// dk and dv complete.  One warp per 16 rows of the unit (W <= 256 rows: at
+// most 16 warps).
 //   0. live: one CTA per (unit, head, 16 queries) marks each 16 x 16 block
 //      that holds a template entry above -1e29.  A block with none has
 //      p = 0 exactly, so dlog = 0 and it adds exact zeros to every sum:
@@ -86,6 +88,7 @@
 
 #include "attention_mma.cuh"
 #include "window_attention_common.cuh"
+#include "window_attention_tc.cuh"
 
 namespace {
 
@@ -105,24 +108,6 @@ struct BwdArgs {
   int batch, n, num_heads, banded;
 };
 
-constexpr int kBlk = 16;         // rows of a warp's block (queries or keys)
-constexpr int kMaxWindow = 256;  // the tensor-core kernels' largest window
-constexpr float kDead = -1e29f;  // template entries at or below: p = 0
-
-// The bf16 tensor-core kernels take every banded geometry and a dense grid
-// of up to 256 tokens; the rest runs the FMA kernels.
-bool tensor_cores(int n, int dtype, int banded) {
-  return dtype == 1 && window_keys(n, banded) <= kMaxWindow;
-}
-
-__host__ __device__ __forceinline__ int units(int n, int banded) {
-  return banded ? n / kChunk : 1;
-}
-
-__host__ __device__ __forceinline__ int blocks(int n, int banded) {
-  return (window_keys(n, banded) + kBlk - 1) / kBlk;
-}
-
 // d_scale partials per head: tensor cores one per (sample, unit); FMA one
 // per template CTA (64-query tiles times the 64-key tiles of a window).
 int partials(int batch, int n, int banded, int dtype) {
@@ -130,14 +115,6 @@ int partials(int batch, int n, int banded, int dtype) {
   const int row_tiles = (n + kTile - 1) / kTile;
   const int key_tiles = banded ? kChunk / kTile : row_tiles;
   return row_tiles * key_tiles;
-}
-
-// The live map's bytes, rounded up so that the partials after it stay
-// 256-byte aligned.
-size_t live_bytes(int n, int num_heads, int banded) {
-  const size_t nb = blocks(n, banded);
-  return (static_cast<size_t>(num_heads) * units(n, banded) * nb * nb + 255) /
-         256 * 256;
 }
 
 size_t scratch_bytes(int batch, int n, int num_heads, int dtype, int banded) {
@@ -598,127 +575,16 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_tmpl_kernel(
 // bf16 on the tensor cores: live blocks, main, template sum
 // ---------------------------------------------------------------------------
 
-// 0. live: one CTA per (unit, head, query block qb).  live[qb][kb] = some
-// entry of the 16 x 16 block above kDead, or a row of qb with none at all.
-__global__ void __launch_bounds__(kThreads) window_attention_bwd_live_kernel(
-    const BwdArgs a) {
-  __shared__ unsigned char row_live[kBlk][kMaxWindow / kBlk];
-  const int w = window_keys(a.n, a.banded);
-  const int nb = blocks(a.n, a.banded);
-  const int unit = blockIdx.x;
-  const int h = blockIdx.y;
-  const int qb = blockIdx.z;
-  const int rows = min(kBlk, w - qb * kBlk);
-  const float* tm = a.tmpl + (static_cast<size_t>(h) * a.n +
-                              unit * (a.banded ? kChunk : 0) + qb * kBlk) *
-                                 w;
-  for (int i = threadIdx.x; i < rows * nb; i += blockDim.x) {
-    const int r = i / nb;
-    const int k0 = (i - r * nb) * kBlk;
-    bool any = false;
-    for (int j = k0; j < min(k0 + kBlk, w); ++j) any |= tm[r * w + j] > kDead;
-    row_live[r][i - r * nb] = any;
-  }
-  __syncthreads();
-  if (threadIdx.x < nb) {
-    const int kb = threadIdx.x;
-    bool any = false, dead_row = false;
-    for (int r = 0; r < rows; ++r) {
-      any |= row_live[r][kb] != 0;
-      bool row_any = false;
-      for (int k = 0; k < nb; ++k) row_any |= row_live[r][k] != 0;
-      dead_row |= !row_any;
-    }
-    a.live[((static_cast<size_t>(h) * gridDim.x + unit) * nb + qb) * nb + kb] =
-        any || dead_row;
-  }
-}
-
 // Shared memory of the main kernel for R = 16 nb staged rows: six bf16 tiles
 // (q^ hi, q^ lo, k^ hi, k^ lo, v, dO; rows padded to 40 values), the f32 dq^
 // accumulator of each query block in fragment order, five per-row vectors
 // (m, 1/l, delta, and the q and k normalisation factors), one d_scale sum
 // per warp and the live map.
 template <int D>
-struct TcSmem {
-  static constexpr int kLd = mma::Tile<D>::kLd;
-  static __host__ __device__ size_t tile(int rows) {
-    return static_cast<size_t>(rows) * kLd * 2;
-  }
-  static size_t bytes(int nb) {
-    const int rows = nb * kBlk;
-    return 6 * tile(rows) + static_cast<size_t>(rows) * D * 4 +
-           5 * static_cast<size_t>(rows) * 4 + kBlk * 4 + nb * nb;
-  }
-};
-
-// Rows [0, rows) of one head's section (row stride `stride` values) into a
-// padded tile; rows at or past `valid` are zero.  All threads.
-template <int D>
-__device__ __forceinline__ void stage_rows(mma::bf16* dst,
-                                           const mma::bf16* src,
-                                           size_t stride, int valid,
-                                           int rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    const bool ok = r < valid;
-    mma::cp_async16(dst + r * TcSmem<D>::kLd + c,
-                    src + static_cast<size_t>(ok ? r : 0) * stride + c, ok);
-  }
-}
-
-// x <- x^ = x * rsqrt(max(sum x^2, 1e-24)) in f32 for one staged row, split
-// into hi = bf16(x^) (in place) and lo = bf16(x^ - hi); returns the factor.
-template <int D>
-__device__ __forceinline__ float split_row(mma::bf16* hi, mma::bf16* lo) {
-  float x[D];
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    x[d] = __bfloat162float(hi[d]);
-    s = fmaf(x[d], x[d], s);
-  }
-  const float f = rsqrtf(fmaxf(s, kEps2));
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float v = x[d] * f;
-    const mma::bf16 vh = __float2bfloat16(v);
-    hi[d] = vh;
-    lo[d] = __float2bfloat16(v - __bfloat162float(vh));
-  }
-  return f;
-}
-
-// c[j] = (A_hi + A_lo) . (B_hi + B_lo)^T without the lo.lo term, for the 16
-// rows of the A fragments against tile rows [n0 + 8j, n0 + 8j + 8): per
-// k-step hi.hi, hi.lo, lo.hi, f32 accumulation from zero.
-template <int D>
-__device__ __forceinline__ void split_nt(float c[2][4],
-                                         const uint32_t ahi[D / 16][4],
-                                         const uint32_t alo[D / 16][4],
-                                         const mma::bf16* bhi,
-                                         const mma::bf16* blo, int n0,
-                                         int lane) {
-  const int off = (n0 + (lane & 7) + ((lane >> 4) << 3)) * TcSmem<D>::kLd +
-                  ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t h[4], l[4];
-    mma::ldmatrix_x4(h, bhi + off + kk * 16);
-    mma::ldmatrix_x4(l, blo + off + kk * 16);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mma::mma_bf16(c[j], ahi[kk], h[2 * j], h[2 * j + 1]);
-      mma::mma_bf16(c[j], ahi[kk], l[2 * j], l[2 * j + 1]);
-      mma::mma_bf16(c[j], alo[kk], h[2 * j], h[2 * j + 1]);
-    }
-  }
+size_t bwd_smem_bytes(int nb) {
+  const int rows = nb * kBlk;
+  return 6 * TcSmem<D>::tile(rows) + static_cast<size_t>(rows) * D * 4 +
+         5 * static_cast<size_t>(rows) * 4 + kBlk * 4 + nb * nb;
 }
 
 // acc += (A_hi + A_lo) . (tile_hi + tile_lo)[k0 .. k0 + 16) without lo.lo.
@@ -848,40 +714,17 @@ __global__ void __launch_bounds__(32 * kMaxWindow / kBlk)
     float d_run[2] = {0.f, 0.f};
     for (int kb = 0; kb < nb; ++kb) {
       if (!live[qb * nb + kb]) continue;
-      float s[2][4], dp[2][4];
-      split_nt<D>(s, ah, al, khi, klo, kb * kBlk, lane);
+      float s[2][4], dp[2][4], alpha[2];
+      row_logits<D>(s, ah, al, khi, klo, tm, scale, w, qb, kb, lane);
       mma::product_nt<D>(dp, da, vt, kb * kBlk, lane);
-      float mt[2] = {-INFINITY, -INFINITY};
+      online_block(s, m, l, alpha);  // s becomes exp(s - m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) d_run[i] *= alpha[i];
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int row = qb * kBlk + g + 8 * i;
-          const int key = kb * kBlk + 8 * j + t2 + (e & 1);
-          s[j][e] = row < w && key < w
-                        ? logit(s[j][e], scale, tm[row * w + key])
-                        : -INFINITY;
-          mt[i] = fmaxf(mt[i], s[j][e]);
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m[i], mma::quad_max(mt[i]));
-        const float alpha = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
-        l[i] *= alpha;
-        d_run[i] *= alpha;
-        m[i] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const float ex =
-              s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[i]);
-          l[i] += ex;
-          d_run[i] = fmaf(ex, dp[j][e], d_run[i]);
-        }
+        for (int e = 0; e < 4; ++e)
+          d_run[e >> 1] = fmaf(s[j][e], dp[j][e], d_run[e >> 1]);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1049,12 +892,11 @@ template <int D>
 cudaError_t launch_bf16(const BwdArgs& a, cudaStream_t stream) {
   const int u = units(a.n, a.banded);
   const int nb = blocks(a.n, a.banded);
-  window_attention_bwd_live_kernel<<<dim3(u, a.num_heads, nb), kThreads, 0,
-                                     stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      launch_live(a.tmpl, a.live, a.n, a.num_heads, a.banded, stream);
   if (err != cudaSuccess) return err;
   auto kernel = window_attention_bwd_bf16_kernel<D>;
-  const size_t smem = TcSmem<D>::bytes(nb);
+  const size_t smem = bwd_smem_bytes<D>(nb);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

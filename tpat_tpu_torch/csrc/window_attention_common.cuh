@@ -3,10 +3,17 @@
 // 64-row tile of one head's slice of the packed qkv into shared memory,
 // the cosine normalisation, the 64 x 64 tile product and the logit.
 //
-// Every kernel of both sources computes a logit with exactly this code:
-// the same per-row normalisation, the same f32 FMA chain over d in order,
-// the same fmaf with the scale and the template.  So the backward kernels,
-// which each recompute p from the row statistics, get the same bits.
+// Two families of kernels compute the logits, each with one code:
+// - the f32 FMA kernels (f32, and bf16 at a dense grid over 256 tokens,
+//   which no model path runs): the normalisation and tile_dot below, the
+//   same f32 FMA chain over d in order, then logit();
+// - the bf16 tensor-core kernels: window_attention_tc.cuh's split_row and
+//   split_nt (cos as three bf16 products hi.hi + hi.lo + lo.hi of the
+//   normalised rows), then logit().
+// Within a family the forward and the backward kernels get the same bits
+// for a logit of the same operand order, and in the tensor-core family the
+// backward's stats sweep gets the forward's row max and sum (online_block).
+// Across the families they differ in the last bits of cos.
 
 #pragma once
 

@@ -32,15 +32,18 @@ summed over the batch, as the JAX custom VJPs do:
 
 - on a CUDA tensor the forward launches ``csrc/window_attention.cu`` and the
   backward ``csrc/window_attention_bwd.cu`` (built with nvcc at first use),
-  or raise.  In bf16 the backward runs on the tensor cores (split-bf16
-  products where the TPU kernel's operands are f32); in f32 it keeps exact
-  FMA kernels;
+  or raise.  In bf16 (at a window of up to 256 keys: every banded call and
+  a dense grid of up to 256 tokens) both run on the tensor cores, with
+  split-bf16 products where the TPU kernel's operands are f32, and skip the
+  16 x 16 template blocks that are all -1e30; in f32 (and bf16 at a larger
+  dense grid) they keep exact FMA kernels;
 - on a CPU tensor they run the plain versions beside them.  That is the
   only case the plain versions serve: nothing falls back from the device.
 
 Launch counters (kernel launches, never plain calls): ``launches`` and
-``banded_launches`` (forwards), ``bwd_launches`` and ``banded_bwd_launches``
-(one per backward, which runs the backward source's kernels in turn).
+``banded_launches`` (one per forward), ``bwd_launches`` and
+``banded_bwd_launches`` (one per backward); each call runs its source's
+kernels in turn.
 
 The layout arithmetic ``supports`` / ``supports_banded`` / ``_batch_group``
 is the JAX module's TPU VMEM criterion, kept verbatim so that a model's
@@ -391,8 +394,10 @@ def fused_window_attention_banded_bwd_plain(qkv, scale, band, d_out):
 def _library() -> ctypes.CDLL:
     lib = _build.load("window_attention")
     fn = lib.tpat_window_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.tpat_window_attention_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.tpat_window_attention_fwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -434,21 +439,26 @@ def _check_device(qkv, scale, template, banded):
 
 
 def _stream(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _forward_kernel(qkv, scale, template, banded):
-    """Launch the forward kernel."""
+    """Launch the forward source: in bf16 the live-block map, then the
+    tensor-core kernel; else the FMA kernel."""
     global launches, banded_launches
     _check_device(qkv, scale, template, banded)
     b, n, c3 = qkv.shape
     h = scale.shape[0]
+    lib = _library()
+    dtype = _DTYPES[qkv.dtype]
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    err = _library().tpat_window_attention_fwd(
-        qkv.data_ptr(), scale.data_ptr(), template.data_ptr(), out.data_ptr(),
-        b, n, h, c3 // 3 // h, _DTYPES[qkv.dtype], int(banded),
-        _stream(qkv.device),
+    scratch = torch.empty(
+        lib.tpat_window_attention_fwd_scratch_bytes(n, h, dtype, int(banded)),
+        dtype=torch.uint8, device=qkv.device)
+    err = lib.tpat_window_attention_fwd(
+        qkv.data_ptr(), scale.data_ptr(), template.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), b, n, h, c3 // 3 // h, dtype,
+        int(banded), _stream(qkv.device),
     )
     if err != 0:
         raise RuntimeError(
