@@ -19,7 +19,8 @@ printing a result:
    N in {257, 181, 127, 90, 258, 129} (plus H=16/D=80), modes
    patch_mean/cls/none, f32 and bf16 at B=2, and bf16 at the serving path's
    widths and modes at buckets 1/8/32; then, at B=128 and the path's widths,
-   compared again and timed with CUDA events;
+   compared again and timed with CUDA events; the sha256 of the kernel
+   outputs is logged (so two builds can be held to the same bits);
 4. serving path at full width: the ViT-B/16 ESC-50 keep-0.7 bf16 model, from
    seeded random weights, saved as a ``.pth``, exported by the port's CLI with
    buckets 1,8,32,128 and served by ``load_forward`` for requests of 1, 5,
@@ -61,7 +62,8 @@ printing a result:
     and dtype at the scale clamp of 100 (f32 atol scaled with the scale) and
     one bf16 case per form whose template has a row with no live entry
     (uniform p, its query block kept whole by the tensor-core kernels); the
-    forward and the backward's d_qkv, d_scale and d_template / d_band;
+    forward and the backward's d_qkv, d_scale and d_template / d_band, and
+    the sha256 of the kernel outputs;
 13. pretrain path at full width: ``engine/pretrain.py``'s train step on
     ``mae_vit_base_dec512d8b`` (bf16, b32, mask ratio 0.8, seeded weights),
     a few steps on one fixed batch at the AudioSet grid (target length
@@ -99,14 +101,17 @@ printing a result:
     P2's nine geometries (``probes/probe_attn_grouping.py``) at the same
     shapes in bf16, and P3
     (``probes/probe_ln_matmul.py``) vs plain, each timed at the probe's
-    shapes; then each probe's ``main()`` with a few iterations (the probes'
-    own path, whose launches are counted);
+    shapes; in bf16 the nine geometries held to P1 'noscore''s bits, and
+    P1 'full' and 'noscore' to B1's out bits at B=128; then each probe's
+    ``main()`` with a few iterations (the probes' own path, whose launches
+    are counted);
 20. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
-    ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*`` and
-    ``window_attention_*`` entries also give the design of their bf16 build
-    and the registers and spill bytes of its kernels (per head_dim; the
-    window forward's FMA kernel too) from the ptxas report, and the
+    ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
+    ``window_attention_*`` and ``attn_probe_*`` entries also give the
+    design of their bf16 build and the registers and spill bytes of its
+    kernels (per head_dim, per probe variant or geometry; the FMA kernels
+    beside the window forward and P1) from the ptxas report, and the
     backward and window entries the SDPA backend of their library call.
 
 Beside each kernel's time the script computes its bound, the least time the
@@ -129,6 +134,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -276,6 +282,29 @@ def bf16_build(name: str, kernel: str) -> dict:
         {str(d): (kernel, f"ILi{d}E") for d in (64, 80)})
 
 
+def probe_builds() -> tuple:
+    """``build_fields`` of ``csrc/attn_probe.cu``: (P1's, per variant in
+    bf16 and f32; P2's, per geometry)."""
+    from tpat_tpu_torch.probes import probe_attn_grouping as p2
+    from tpat_tpu_torch.probes import probe_attn_softmax as p1
+
+    design = ("bf16: B1's kernel, a warp per 16 query rows, mma.sync "
+              "m16n8k16 (ldmatrix), cp.async double-buffered 64-key tiles, "
+              "the softmax on the accumulator fragments, two sweeps over the "
+              "keys (one for mmonly), the next head's first tiles copied "
+              "during the last tile of the one before; f32 keeps B1's FMA "
+              "tiles")
+    kernel = "attn_probe_bf16_kernelILi{}ELi{}ELi{}E"
+    variants = {v: (kernel.format(64, 1, i),) for i, v in enumerate(p1.VARIANTS)}
+    variants.update({f"f32 {v}": (f"attn_probe_f32_kernelILi{i}E",)
+                     for i, v in enumerate(p1.VARIANTS)})
+    noscore = p1.VARIANTS.index("noscore")
+    geometries = {f"{r} rows, {h} heads": (kernel.format(r, h, noscore),)
+                  for r in p2.ROWS for h in p2.HEADS}
+    return (build_fields("attn_probe", design, variants),
+            build_fields("attn_probe", design, geometries))
+
+
 WINDOW_FWD_BUILD = (
     "window_attention",
     "bf16: a live-block kernel, then one CTA per (window unit, head, sample), "
@@ -340,6 +369,16 @@ def _rel_close(got, want, rel, what) -> float:
     return err
 
 
+def _fold(digest, *tensors):
+    """Fold kernel outputs' bytes into ``digest``: phases 3 and 12 log it, so
+    that two builds of the same kernels can be held to the same bits."""
+    if digest is not None:
+        for t in tensors:
+            if t is not None:
+                digest.update(t.contiguous().cpu().view(torch.uint8).numpy()
+                              .tobytes())
+
+
 def _fwd_pair(qa, kv):
     """(kernel, plain) forward functions of (qkv, h, mode, extra): the
     plain form when kv is None, else the prefix form at kv_valid = kv."""
@@ -349,13 +388,14 @@ def _fwd_pair(qa, kv):
             lambda qkv, *a: qa.fused_qkv_attention_prefix_plain(qkv, kv, *a))
 
 
-def _compare(qa, qkv, h, mode, extra, kv=None):
+def _compare(qa, qkv, h, mode, extra, kv=None, digest=None):
     """Kernel vs plain on one input; returns (out err, score err)."""
     kern, plain = _fwd_pair(qa, kv)
     with torch.no_grad():
         out, s = kern(qkv, h, mode, extra)
         pout, ps = plain(qkv, h, mode, extra)
     torch.cuda.synchronize()
+    _fold(digest, out, s)
     if qkv.dtype == torch.float32:
         e = _close(out, pout, F32_ATOL, 0.0)
     else:
@@ -374,6 +414,7 @@ def kernel_vs_plain() -> float:
     from tpat_tpu_torch.ops import qkv_attention as qa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    digest = hashlib.sha256()
     worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     count = {torch.float32: 0, torch.bfloat16: 0}
     cases = [
@@ -391,12 +432,13 @@ def kernel_vs_plain() -> float:
     ]
     for b, h, d, n, mode, extra, dt in cases:
         qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen).to(dt)
-        eo, es = _compare(qa, qkv, h, mode, extra)
+        eo, es = _compare(qa, qkv, h, mode, extra, digest=digest)
         worst[dt] = [max(worst[dt][0], eo), max(worst[dt][1], es)]
         count[dt] += 1
     for dt, (eo, es) in worst.items():
         log(f"kernel vs plain, {count[dt]} cases, {dt}: worst out abs err "
             f"{eo:.3g}, worst score abs err {es:.3g}")
+    log(f"kernel vs plain: the kernel outputs' sha256 {digest.hexdigest()}")
     return max(max(v) for v in worst.values())
 
 
@@ -583,11 +625,12 @@ def time_kernel():
     total_k = total_p = worst = 0.0
     total_b = {}
     no_score = [0.0, 0.0]  # the calls without scores: kernel, library
+    digest = hashlib.sha256()
     with torch.no_grad():
         for n, mode, calls in PATH_CALLS:
             qkv = torch.randn(128, n, 3 * 768, device="cuda",
                               generator=gen).to(torch.bfloat16)
-            eo, es = _compare(qa, qkv, 12, mode, 1)
+            eo, es = _compare(qa, qkv, 12, mode, 1, digest=digest)
             worst = max(worst, eo, es)
             kern = lambda: qa.fused_qkv_attention(qkv, 12, mode, 1)  # noqa: E731
             plain = lambda: qa.fused_qkv_attention_plain(qkv, 12, mode, 1)  # noqa: E731
@@ -610,7 +653,8 @@ def time_kernel():
     log(f"time per b128 forward, all 12 attention calls: kernel "
         f"{total_k:.4f} ms, plain {total_p:.4f} ms, bound "
         f"{sum(total_b.values()):.4f} ms; the 9 calls without scores: kernel "
-        f"{no_score[0]:.4f} ms, library {no_score[1]:.4f} ms")
+        f"{no_score[0]:.4f} ms, library {no_score[1]:.4f} ms; the kernel "
+        f"outputs' sha256 {digest.hexdigest()}")
     return total_k, total_p, worst, total_b
 
 
@@ -1201,7 +1245,7 @@ def _window_fns(wa, banded):
 
 
 def _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
-                    f32_atol=F32_ATOL) -> tuple:
+                    f32_atol=F32_ATOL, digest=None) -> tuple:
     """Kernel vs plain, forward and backward, on one input: (forward abs
     err, backward abs err, backward err / max|plain|, the largest over its
     outputs).  The f32 forward within ``f32_atol``, bf16 within BF16_TOL;
@@ -1217,6 +1261,7 @@ def _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
     got = wa.window_attention_bwd(qkv, scale, tmpl, d_out, banded)
     want = plain_bwd(qkv, scale, tmpl, d_out)
     torch.cuda.synchronize()
+    _fold(digest, out, *got)
     rel = GRAD_F32_REL if f32 else GRAD_BF16_REL
     parts = list(zip(("d_q", "d_k", "d_v"), got[0].chunk(3, -1),
                      want[0].chunk(3, -1)))
@@ -1232,6 +1277,7 @@ def window_vs_plain() -> dict:
     from tpat_tpu_torch.ops import window_attention as wa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    digest = hashlib.sha256()
     worst = {"B5 fwd": 0.0, "B5 bwd": 0.0, "B6 fwd": 0.0, "B6 bwd": 0.0}
     rel = {"B5": 0.0, "B6": 0.0}
     count = 0
@@ -1244,7 +1290,8 @@ def window_vs_plain() -> dict:
                                 f"shift={shift} {dt}")
                         args = _window_inputs(2, h, 32, (n // 8, 8), shift,
                                               banded, dt, gen)
-                        ef, eb, rb = _compare_window(wa, *args, banded, what)
+                        ef, eb, rb = _compare_window(wa, *args, banded, what,
+                                                     digest=digest)
                         key = "B6" if banded else "B5"
                         worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
                         worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
@@ -1261,7 +1308,8 @@ def window_vs_plain() -> dict:
             args = _window_inputs(2, 16, 32, (n // 8, 8), (2, 0), banded, dt,
                                   gen, scale_value=SCALE_CLAMP)
             ef, eb, rb = _compare_window(wa, *args, banded, what,
-                                         f32_atol=F32_ATOL * SCALE_CLAMP / 10.0)
+                                         f32_atol=F32_ATOL * SCALE_CLAMP / 10.0,
+                                         digest=digest)
             worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
             worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
             if dt == torch.bfloat16:
@@ -1275,7 +1323,8 @@ def window_vs_plain() -> dict:
         qkv, scale, tmpl, d_out = _window_inputs(
             2, 16, 32, (n // 8, 8), (2, 0), banded, torch.bfloat16, gen)
         tmpl[:, 5] = -1e30
-        ef, eb, rb = _compare_window(wa, qkv, scale, tmpl, d_out, banded, what)
+        ef, eb, rb = _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
+                                     digest=digest)
         worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
         worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
         rel[f"{key} row without a live entry"] = rb
@@ -1283,7 +1332,8 @@ def window_vs_plain() -> dict:
     log(f"window kernels vs plain at B=2, {count} cases (f32 and bf16): worst "
         "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + "; bf16 backward, worst err / max|plain| over its outputs: "
-        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f"; the kernel outputs' sha256 {digest.hexdigest()}")
     return worst
 
 
@@ -1818,11 +1868,12 @@ def ln_matmul_library_ms(x, g, b, w) -> float:
             x.float(), (x.shape[1],), g, b, LN_EPS).to(x.dtype), w))
 
 
-def _compare_variant(p1, qkv, variant) -> float:
+def _compare_variant(p1, qkv, variant) -> tuple:
     """P1 kernel vs plain on one input: out within F32_ATOL (f32) or
     BF16_TOL for the normalised variants, within UNNORM_F32_REL or
     GRAD_BF16_REL of the largest |entry| for noexp and mmonly; colsum within
-    the score tolerance for 'full' and exactly zero otherwise."""
+    the score tolerance for 'full' and exactly zero otherwise.  Returns (the
+    worst abs err, the kernel's out)."""
     what = f"P1 {variant} B={qkv.shape[0]} N={qkv.shape[1]} {qkv.dtype}"
     with torch.no_grad():
         out, colsum = p1.variant_attention(qkv, variant)
@@ -1839,7 +1890,14 @@ def _compare_variant(p1, qkv, variant) -> float:
         err = max(err, _close(colsum, pcol, SCORE_ATOL, SCORE_RTOL))
     elif colsum.shape != pcol.shape or colsum.any():
         raise AssertionError(f"{what}: colsum is not zero")
-    return err
+    return err, out
+
+
+def _same_bits(got, want, what):
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"{what}: not the same bits (max abs diff "
+            f"{(got.float() - want.float()).abs().max().item():.3g})")
 
 
 def probe_work(b, n, itemsize, variant) -> tuple:
@@ -1855,10 +1913,14 @@ def probes_vs_plain() -> tuple:
     """Phase 19: P1's six variants vs plain at B=2 (N 33 and 257, f32 and
     bf16) and B=128 (N 257 and 181, bf16); P2's nine geometries vs plain at
     B=2 (N 33 and 257) and B=128 (N 257 and 181), bf16; P3 vs plain at M = 100 (f32
-    and bf16) and at the probe's M, K, N (bf16).  Then each at the probe's
-    shapes (B=128, N=257; P3's M, K, N), kernel and plain timed in turns
-    beside the bound and the library call.  Returns ({probe: worst abs
-    err}, {probe: times})."""
+    and bf16) and at the probe's M, K, N (bf16).  In bf16 the probes run
+    B1's tensor-core body, so the nine P2 geometries must give P1
+    'noscore''s bits at each input, and at B=128 P1 'full' and 'noscore'
+    B1's out bits (``fused_qkv_attention`` with patch_mean scores and
+    without).  Then each at the probe's shapes (B=128, N=257; P3's M, K,
+    N), kernel and plain timed in turns beside the bound and the library
+    call.  Returns ({probe: worst abs err}, {probe: times})."""
+    from tpat_tpu_torch.ops import qkv_attention as qa
     from tpat_tpu_torch.probes import probe_attn_grouping as p2
     from tpat_tpu_torch.probes import probe_attn_softmax as p1
     from tpat_tpu_torch.probes import probe_ln_matmul as p3
@@ -1872,9 +1934,12 @@ def probes_vs_plain() -> tuple:
                      (128, 181, bf16)):
         qkv = torch.randn(b, n, 3 * p1.C, device="cuda", generator=gen).to(dt)
         inputs[b, n, dt] = qkv
+        outs = {}
         for variant in p1.VARIANTS:
-            worst["P1"] = max(worst["P1"], _compare_variant(p1, qkv, variant))
+            err, outs[variant] = _compare_variant(p1, qkv, variant)
+            worst["P1"] = max(worst["P1"], err)
         if dt == bf16:
+            what = f"B={b} N={n}"
             with torch.no_grad():
                 want = p2.grouped_attention_plain(qkv)
                 for rows in p2.ROWS:
@@ -1882,6 +1947,15 @@ def probes_vs_plain() -> tuple:
                         got = p2.grouped_attention(qkv, rows, heads)
                         worst["P2"] = max(worst["P2"], _close(
                             got, want, BF16_TOL, BF16_TOL))
+                        _same_bits(got, outs["noscore"],
+                                   f"P2 {rows} rows, {heads} heads vs P1 "
+                                   f"noscore, {what}")
+                if b == 128:
+                    for variant, mode in (("full", "patch_mean"),
+                                          ("noscore", None)):
+                        b1, _ = qa.fused_qkv_attention(qkv, p1.H, mode, 1)
+                        _same_bits(outs[variant], b1,
+                                   f"P1 {variant} vs B1 ({mode}), {what}")
     for m, k, n, dt in ((100, 768, 256, torch.float32), (100, 768, 256, bf16),
                         (p3.M, p3.K, p3.N, bf16)):
         x, g, b, w = p3.inputs(SEED + 13, m, k, n, dt)
@@ -1892,7 +1966,9 @@ def probes_vs_plain() -> tuple:
         worst["P3"] = max(worst["P3"], _close(got, want, *tol))
     log("probes vs plain: 36 P1 cases (6 variants), 36 P2 cases (9 "
         "geometries), 3 P3 cases: worst abs err " + ", ".join(
-            f"{k} {v:.3g}" for k, v in worst.items()))
+            f"{k} {v:.3g}" for k, v in worst.items()) + "; the same bits: "
+        "P2's nine geometries and P1 noscore at each of 4 bf16 inputs, P1 "
+        "full and noscore and B1 at B=128, N 257 and 181")
 
     times = {}
     qkv = inputs[128, 257, bf16]
@@ -2093,14 +2169,16 @@ def run_phases(tmp):
                 if key.startswith(prefix)}
 
     at = "one call at B=128, N=257, bf16"
+    variants_build, grouped_build = probe_builds()
     kernels += [
         probe_entry("attn_probe_variants", "attn_probe.cu",
                     "scripts/probe_attn_softmax.py:42", "P1 full", "P1",
-                    f"{at}, variant full", variants=rows("P1 ")),
+                    f"{at}, variant full", variants=rows("P1 "),
+                    **variants_build),
         probe_entry("attn_probe_grouped", "attn_probe.cu",
                     "scripts/probe_attn_grouping.py:32", "P2 64 rows, 1 heads",
                     "P2", f"{at}, 64 query rows and 1 head per CTA",
-                    geometries=rows("P2 ")),
+                    geometries=rows("P2 "), **grouped_build),
         probe_entry("ln_matmul", "ln_matmul.cu",
                     "scripts/probe_ln_matmul.py:41", "P3", "P3",
                     "one call at M=32896, K=768, N=2304, bf16"),

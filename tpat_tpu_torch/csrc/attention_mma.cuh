@@ -1,8 +1,9 @@
 // Tensor-core pieces of the bf16 attention kernels (qkv_attention.cu, B1/B2,
-// qkv_attention_bwd.cu, B3, and window_attention_bwd.cu, the B5/B6
-// backward): 16-byte cp.async tile copies, ldmatrix fragment loads, mma.sync
-// m16n8k16 bf16 products with f32 accumulation, movmatrix transposes of
-// fragments, and the quad reductions over the accumulator layout.
+// qkv_attention_bwd.cu, B3, window_attention.cu and window_attention_bwd.cu,
+// the B5/B6 forward and backward, and attn_probe.cu, the probes P1/P2):
+// 16-byte cp.async tile copies, ldmatrix fragment loads, mma.sync m16n8k16
+// bf16 products with f32 accumulation, movmatrix transposes of fragments,
+// and the quad reductions over the accumulator layout.
 //
 // Tiles are 64 rows of one head's D values (D a multiple of 16), bf16 in
 // shared memory with rows padded to kLd = D + 8 values: row r starts 16*r
@@ -75,6 +76,22 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           size_t stride, int r0, int n) {
   using T = Tile<D>;
   for (int i = threadIdx.x; i < kRows * T::kChunks; i += kThreads) {
+    const int r = i / T::kChunks;
+    const int c = (i - r * T::kChunks) * 8;
+    const int row = r0 + r;
+    const bool valid = row < n;
+    cp_async16(dst + r * T::kLd + c,
+               src + static_cast<size_t>(valid ? row : 0) * stride + c, valid);
+  }
+}
+
+// load_tile for a tile of ROWS rows staged by a CTA of THREADS threads (the
+// probes' query tiles of 32 and 128 rows, CTAs of 2 and 8 warps).
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile_rows(bf16* dst, const bf16* src,
+                                               size_t stride, int r0, int n) {
+  using T = Tile<D>;
+  for (int i = threadIdx.x; i < ROWS * T::kChunks; i += THREADS) {
     const int r = i / T::kChunks;
     const int c = (i - r * T::kChunks) * 8;
     const int row = r0 + r;

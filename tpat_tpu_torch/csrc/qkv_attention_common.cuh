@@ -1,13 +1,12 @@
-// Pieces shared by the packed-qkv attention forward (qkv_attention.cu, B1
-// and B2) and the attention probes built on its body (attn_probe.cu, P1 and
-// P2): the dtype loads and stores, the staging of a head's rows into shared
-// memory, the thread's logit micro-tile and the reductions over the 16 lanes
-// of a query row.  256 threads per CTA, as a 16 x 16 grid (tx = tid & 15,
-// ty = tid >> 4).
+// Pieces shared by the f32 FMA kernels of the packed-qkv attention forward
+// (qkv_attention.cu, B1 and B2) and of the attention probe built on its body
+// (attn_probe.cu, P1 in f32): the loads and stores, the staging of a head's
+// rows into shared memory, the thread's logit micro-tile and the reductions
+// over the 16 lanes of a query row.  256 threads per CTA, as a 16 x 16 grid
+// (tx = tid & 15, ty = tid >> 4).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -24,20 +23,6 @@ struct Io<float> {
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
   static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-  }
-  // p is cast to v's dtype before p.v, as in the JAX kernels
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
 };
 
 // Rows [r0, r0 + rows) of one head's section (D values each) into shared

@@ -5,13 +5,16 @@ The TPU probe swept the batch group g of a program and its lane width (128
 or 256 lanes: 2 or 4 heads per program), skipping what did not fit in VMEM.
 On Hopper a CTA's geometry is its query-tile height and the heads it runs
 one after the other, so this probe sweeps those: ``ROWS`` (32, 64 or 128
-query rows per CTA) by ``HEADS`` (1, 2 or 4 heads per CTA), skipping a
-height whose CTA does not fit in the card's shared memory.
+query rows per CTA: 2, 4 or 8 warps of 16 rows) by ``HEADS`` (1, 2 or 4
+heads per CTA, the copy of each next head's first tiles overlapping the
+last tile of the one before), skipping a height whose CTA does not fit in
+the card's shared memory.  Taller tiles read each K and V tile from L2 for
+more query rows; more heads make fewer, longer CTAs.
 
 ``grouped_attention(qkv, rows, heads)`` is softmax attention without scores
-(P1's 'noscore' body in ``csrc/attn_probe.cu``, bf16) from packed qkv
-(B, N, 3 * 768) to out (B, N, 768); the output does not depend on the
-geometry.  On a CUDA tensor it launches the kernel (or raises); on a CPU
+(P1's bf16 'noscore' body in ``csrc/attn_probe.cu``: B1's tensor-core
+kernel) from packed qkv (B, N, 3 * 768) to out (B, N, 768); the output does
+not depend on the geometry, bit for bit.  On a CUDA tensor it launches the kernel (or raises); on a CPU
 tensor it runs ``grouped_attention_plain``.  ``launches`` counts kernel
 launches.
 

@@ -2,15 +2,20 @@
 (port of ``scripts/probe_attn_softmax.py``)
 
 Ablation variants of the attention forward at the headline widths (ViT-B,
-b128 bf16), run by ``csrc/attn_probe.cu`` at the B1 kernel's geometry
-(64-row query tiles, one head per CTA):
+b128 bf16), run by ``csrc/attn_probe.cu`` on the B1 kernel's body and
+geometry (64-row query tiles, one head per CTA).  In bf16 that is B1's
+tensor-core kernel (``mma.sync`` products, the softmax on the accumulator
+fragments, two sweeps over the keys), so each variant removes one part of
+the kernel the model runs; 'full' and 'noscore' give B1's output bits.  In
+f32 it is B1's exact FMA kernel.
 
   full        the shipped math (exp softmax, unnormalised column sums on)
   noscore     no column sums
   exp2        log2(e) folded into the logit scale, exp2 instead of exp
   noexp       p = logits - rowmax (no transcendental; WRONG math, cost bound)
   nomax       no row max (UNSAFE math, bounds the max's cost)
-  mmonly      p = logits, no softmax at all (the product floor)
+  mmonly      p = logits, no softmax at all (the product floor; one sweep
+              over the keys instead of two)
 
 ``variant_attention(qkv, variant)`` takes packed qkv (B, N, 3 * 768) and
 returns (out (B, N, 768) in qkv's dtype, colsum (B, 12, 1, N) f32): zeros
@@ -38,6 +43,7 @@ from typing import Tuple
 import torch
 
 from tpat_tpu_torch.ops import _build
+from tpat_tpu_torch.ops.qkv_attention import aligned16
 
 B, C, H = 128, 768, 12
 D = C // H
@@ -124,11 +130,14 @@ def library() -> ctypes.CDLL:
 
 def check_device(qkv: torch.Tensor):
     """What the probe kernels take beyond ``check_qkv``: a contiguous tensor on
-    a CUDA device."""
+    a CUDA device, starting on a 16-byte boundary (the bf16 kernels'
+    cp.async copies)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"no attention probe kernel for device {qkv.device}")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
+    if not aligned16(qkv):
+        raise ValueError("qkv must start on a 16-byte boundary")
 
 
 def _variant_kernel(qkv: torch.Tensor, variant: str):
