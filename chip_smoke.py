@@ -100,19 +100,27 @@ printing a result:
     plain at B=2 (N 33 and 257, f32 and bf16) and B=128 (N 257 and 181),
     P2's nine geometries (``probes/probe_attn_grouping.py``) at the same
     shapes in bf16, and P3
-    (``probes/probe_ln_matmul.py``) vs plain, each timed at the probe's
-    shapes; in bf16 the nine geometries held to P1 'noscore''s bits, and
+    (``probes/probe_ln_matmul.py``) vs plain at (M, K, N) = (100, 768, 256)
+    in f32 and bf16 and, in bf16, (4111, 768, 2304), (32896, 768, 2304) and
+    (300, 256, 264), each bf16 case launched three more times for the same
+    bits; P3 in bf16 with w = I (K = N = 768, M = 4112), whose output is
+    the kernel's rounded LayerNorm, against ``p3.ln`` (the share of entries
+    that differ logged); the bf16 P3 kernel's SASS holds HGMMA and UTMALDG
+    (where the toolkit has cuobjdump); each probe timed at its shapes; in
+    bf16 the nine geometries held to P1 'noscore''s bits, and
     P1 'full' and 'noscore' to B1's out bits at B=128; then each probe's
     ``main()`` with a few iterations (the probes' own path, whose launches
     are counted);
 20. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
-    ``window_attention_*`` and ``attn_probe_*`` entries also give the
-    design of their bf16 build and the registers and spill bytes of its
-    kernels (per head_dim, per probe variant or geometry; the FMA kernels
-    beside the window forward and P1) from the ptxas report, and the
-    backward and window entries the SDPA backend of their library call.
+    ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
+    also give the design of their bf16 build and the registers and spill
+    bytes of its kernels (per head_dim, per probe variant or geometry, per
+    dtype for P3; the FMA kernels beside the window forward and P1) from
+    the ptxas report, and the backward and window entries the SDPA backend
+    of their library call; ``ln_matmul`` also its SASS check and its w = I
+    comparison.
 
 Beside each kernel's time the script computes its bound, the least time the
 H100 could take for the same work on these inputs (the larger of the bytes
@@ -138,6 +146,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -196,6 +205,13 @@ LN_STEP_LAUNCHES = (24, 24)  # forward, backward: norm1 and norm2 x 12 blocks
 # probes (phase 19): the unnormalised outputs (noexp, mmonly) within this
 # share of their largest |entry| in f32 (sums of N products of size ~1)
 UNNORM_F32_REL = 1e-5
+# P3 vs plain at (M, K, N, dtype): the probe's shape, a ragged M, an N that
+# is not a multiple of the kernel's 256 columns, a K of four slices
+P3_CASES = ((100, 768, 256, torch.float32), (100, 768, 256, torch.bfloat16),
+            (4111, 768, 2304, torch.bfloat16),
+            (128 * 257, 768, 2304, torch.bfloat16),
+            (300, 256, 264, torch.bfloat16))
+P3_IDENTITY = (4112, 768, 4)  # M, K = N, inputs (seeds): w = I
 PROBE_ITERS = 5  # timed calls per row and repeat of each probe's main()
 
 
@@ -305,6 +321,17 @@ def probe_builds() -> tuple:
             build_fields("attn_probe", design, geometries))
 
 
+LN_MATMUL_DESIGN = (
+    "bf16: persistent CTAs (one per SM), 128 x 256 output tiles, a row "
+    "block's column tiles back to back; a producer warpgroup's thread "
+    "issues TMA loads (128-byte swizzle) into a ring of three 48 KB stages "
+    "under full/empty mbarriers: per row block x alone twice (the mean, "
+    "then the centred variance, from ldmatrix fragments), then x and w per "
+    "64-deep slice; two consumer warpgroups (setmaxnreg 232, the producers "
+    "40) normalise their ldmatrix fragments of x into bf16 A registers and "
+    "issue wgmma m64n256k16 (A from registers, w N-major by descriptor), "
+    "waiting per slice; the accumulator leaves through a swizzled shared "
+    "buffer and a TMA store. f32 keeps the FMA tiles")
 WINDOW_FWD_BUILD = (
     "window_attention",
     "bf16: a live-block kernel, then one CTA per (window unit, head, sample), "
@@ -1893,6 +1920,83 @@ def _compare_variant(p1, qkv, variant) -> tuple:
     return err, out
 
 
+def sass_check(name: str, kernel: str, needles=("HGMMA", "UTMALDG")):
+    """Counts of ``needles`` in the SASS of ``kernel`` (a substring of its
+    mangled name) in the built ``csrc/<name>.cu``, by cuobjdump; raises if
+    one is missing.  "not checked" where the toolkit has no cuobjdump."""
+    from tpat_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log(f"SASS of {kernel}: not checked (no cuobjdump)")
+        return "not checked"
+    sass = subprocess.run([tool, "-sass", str(_build.build(name))],
+                          capture_output=True, text=True, check=True).stdout
+    found = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split(maxsplit=1)[0]]
+    if len(found) != 1:
+        raise AssertionError(f"no single SASS function of {kernel}")
+    counts = {needle: found[0].count(needle) for needle in needles}
+    log(f"SASS of {kernel}: {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"{kernel}: SASS lacks one of {needles}: {counts}")
+    return counts
+
+
+def _bf16_ulps(t):
+    """bf16 values as integers in the order of their values, so that
+    neighbouring values differ by 1 (-0 and +0 both 0)."""
+    v = t.contiguous().view(torch.int16).int()
+    return torch.where(v < 0, -(v & 0x7FFF), v)
+
+
+def ln_matmul_identity(p3) -> dict:
+    """P3 in bf16 with w = I: the product is y itself, so the output is the
+    kernel's LayerNorm rounded to bf16 once.  Held to ``p3.ln`` within one
+    bf16 ulp at the scale of the larger of |y| and |(x - mu) rstd g|: the
+    statistics are summed in another order than torch's (rstd moves by an
+    f32 ulp), which moves y by a few f32 ulps of that term, many bf16 ulps
+    of a y near 0 where b cancels it.  Logs and returns the share of
+    entries that differ and how far, in bf16 ulps of y itself, over a few
+    seeded inputs."""
+    from tpat_tpu_torch.ops.layernorm import layernorm_fwd_plain  # p3.ln's
+
+    m, k, seeds = P3_IDENTITY
+    eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+    out = dict.fromkeys(("entries", "differ", "over_one_ulp_of_y",
+                         "max_ulps_of_y"), 0)
+    out["max_abs_y_over_one_ulp"] = 0.0
+    for seed in range(SEED + 14, SEED + 14 + seeds):
+        x, g, b, _ = p3.inputs(seed, m, k, k, torch.bfloat16)
+        with torch.no_grad():
+            got = p3.ln_matmul(x, g, b, eye)
+            want, mu, rstd = layernorm_fwd_plain(x, g, b, p3.EPS)
+        torch.cuda.synchronize()
+        ulps = (_bf16_ulps(got) - _bf16_ulps(want)).abs()
+        scale = torch.maximum(want.float().abs(),
+                              ((x.float() - mu) * rstd * g).abs())
+        ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-30))) - 7)
+        err = (got.float() - want.float()).abs()
+        if not torch.isfinite(got.float()).all() or (err > ulp).any():
+            raise AssertionError(
+                f"P3 w = I, seed {seed}: {int((err > ulp).sum())} entries "
+                "further than one bf16 ulp of max(|y|, |(x - mu) rstd g|) "
+                "from p3.ln")
+        over = ulps > 1
+        out["entries"] += got.numel()
+        out["differ"] += int((ulps > 0).sum())
+        out["over_one_ulp_of_y"] += int(over.sum())
+        out["max_ulps_of_y"] = max(out["max_ulps_of_y"], int(ulps.max()))
+        if over.any():
+            out["max_abs_y_over_one_ulp"] = max(
+                out["max_abs_y_over_one_ulp"],
+                want.float().abs()[over].max().item())
+    out["share_differing"] = out["differ"] / out["entries"]
+    log(f"P3 w = I, M={m}, K=N={k}, {seeds} inputs: {out}")
+    return out
+
+
 def _same_bits(got, want, what):
     if not torch.equal(got, want):
         raise AssertionError(
@@ -1912,14 +2016,16 @@ def probe_work(b, n, itemsize, variant) -> tuple:
 def probes_vs_plain() -> tuple:
     """Phase 19: P1's six variants vs plain at B=2 (N 33 and 257, f32 and
     bf16) and B=128 (N 257 and 181, bf16); P2's nine geometries vs plain at
-    B=2 (N 33 and 257) and B=128 (N 257 and 181), bf16; P3 vs plain at M = 100 (f32
-    and bf16) and at the probe's M, K, N (bf16).  In bf16 the probes run
+    B=2 (N 33 and 257) and B=128 (N 257 and 181), bf16; P3 vs plain at
+    ``P3_CASES``, each bf16 case launched three more times for the same
+    bits, then with w = I (``ln_matmul_identity``).  In bf16 P1/P2 run
     B1's tensor-core body, so the nine P2 geometries must give P1
     'noscore''s bits at each input, and at B=128 P1 'full' and 'noscore'
     B1's out bits (``fused_qkv_attention`` with patch_mean scores and
     without).  Then each at the probe's shapes (B=128, N=257; P3's M, K,
     N), kernel and plain timed in turns beside the bound and the library
-    call.  Returns ({probe: worst abs err}, {probe: times})."""
+    call.  Returns ({probe: worst abs err}, {probe: times}, P3's w = I
+    record)."""
     from tpat_tpu_torch.ops import qkv_attention as qa
     from tpat_tpu_torch.probes import probe_attn_grouping as p2
     from tpat_tpu_torch.probes import probe_attn_softmax as p1
@@ -1956,16 +2062,21 @@ def probes_vs_plain() -> tuple:
                         b1, _ = qa.fused_qkv_attention(qkv, p1.H, mode, 1)
                         _same_bits(outs[variant], b1,
                                    f"P1 {variant} vs B1 ({mode}), {what}")
-    for m, k, n, dt in ((100, 768, 256, torch.float32), (100, 768, 256, bf16),
-                        (p3.M, p3.K, p3.N, bf16)):
+    for m, k, n, dt in P3_CASES:
         x, g, b, w = p3.inputs(SEED + 13, m, k, n, dt)
         with torch.no_grad():
             got, want = p3.ln_matmul(x, g, b, w), p3.ln_matmul_plain(x, g, b, w)
+            again = [p3.ln_matmul(x, g, b, w) for _ in range(3 if dt == bf16
+                                                             else 0)]
         torch.cuda.synchronize()
         tol = (F32_ATOL, F32_ATOL) if dt == torch.float32 else (BF16_TOL, BF16_TOL)
         worst["P3"] = max(worst["P3"], _close(got, want, *tol))
-    log("probes vs plain: 36 P1 cases (6 variants), 36 P2 cases (9 "
-        "geometries), 3 P3 cases: worst abs err " + ", ".join(
+        for i, a in enumerate(again):
+            _same_bits(a, got, f"P3 launch {i + 2} at ({m}, {k}, {n})")
+    identity = ln_matmul_identity(p3)
+    log(f"probes vs plain: 36 P1 cases (6 variants), 36 P2 cases (9 "
+        f"geometries), {len(P3_CASES)} P3 cases (each bf16 one the same bits "
+        "over four launches): worst abs err " + ", ".join(
             f"{k} {v:.3g}" for k, v in worst.items()) + "; the same bits: "
         "P2's nine geometries and P1 noscore at each of 4 bf16 inputs, P1 "
         "full and noscore and B1 at B=128, N 257 and 181")
@@ -1999,7 +2110,7 @@ def probes_vs_plain() -> tuple:
     for key, (k, p, lib, (bms, by)) in times.items():
         log(f"{key} at the probe's shapes: kernel {k:.4f} ms, plain {p:.4f} "
             f"ms, library {lib} ms, bound {bms:.4f} ms ({by})")
-    return worst, times
+    return worst, times, identity
 
 
 def probe_mains() -> dict:
@@ -2063,7 +2174,8 @@ def run_phases(tmp):
     ln_per, ln_path_err = layernorm_at_path(
         serve_calls,
         [c for walk in (serve_walk, *ln_walks.values()) for c in walk])
-    probe_err, probe_times = probes_vs_plain()
+    probe_err, probe_times, p3_identity = probes_vs_plain()
+    p3_sass = sass_check("ln_matmul", "ln_matmul_bf16_tc_kernel")
     probe_launches = probe_mains()
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
@@ -2181,7 +2293,11 @@ def run_phases(tmp):
                     geometries=rows("P2 "), **grouped_build),
         probe_entry("ln_matmul", "ln_matmul.cu",
                     "scripts/probe_ln_matmul.py:41", "P3", "P3",
-                    "one call at M=32896, K=768, N=2304, bf16"),
+                    "one call at M=32896, K=768, N=2304, bf16",
+                    sass=p3_sass, identity=p3_identity,
+                    **build_fields("ln_matmul", LN_MATMUL_DESIGN, {
+                        "bf16": ("ln_matmul_bf16_tc_kernel",),
+                        "f32": ("ln_matmul_f32_kernel",)})),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

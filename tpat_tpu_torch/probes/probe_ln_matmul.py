@@ -13,9 +13,10 @@ Rows A, B and D are the probe's yardsticks and stay library calls, as the
 JAX script leaves them to XLA.  ``ln_matmul(x, g, b, w)`` computes LN(x)
 per row with f32 statistics, rounds it to x's dtype, multiplies by w with
 f32 accumulation and writes x's dtype; the product is computed in the
-kernel's own body.  On a CUDA tensor it launches the kernel (or raises); on
-a CPU tensor it runs ``ln_matmul_plain``.  ``launches`` counts kernel
-launches.
+kernel's own body: in bf16 on tensor cores (wgmma, with x and w staged by
+TMA), in f32 on FMA tiles.  On a CUDA tensor it launches the kernel (or
+raises, on a shape or alignment the kernel does not take); on a CPU tensor
+it runs ``ln_matmul_plain``.  ``launches`` counts kernel launches.
 
     python -m tpat_tpu_torch.probes.probe_ln_matmul
 """
@@ -55,6 +56,12 @@ def _check(x, g, b, w):
             f"x and w must share float32 or bfloat16, got {x.dtype}, {w.dtype}")
 
 
+def _tc_supports(m: int, k: int, n: int) -> bool:
+    """The bf16 tensor-core kernel's shapes: TMA needs 16-byte row strides,
+    so K and N are multiples of 8 bf16 values."""
+    return m >= 1 and k >= 8 and n >= 8 and k % 8 == 0 and n % 8 == 0
+
+
 def ln_matmul_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                     w: torch.Tensor) -> torch.Tensor:
     """``_ln_mm_kernel`` (``probe_ln_matmul.py:41-50``) in plain PyTorch:
@@ -71,7 +78,7 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.tpat_ln_matmul.restype = ctypes.c_int
-    lib.tpat_ln_matmul_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpat_ln_matmul_smem.argtypes = [ctypes.c_int]
     lib.tpat_ln_matmul_smem.restype = ctypes.c_longlong
     return lib
 
@@ -88,12 +95,22 @@ def _kernel(x, g, b, w):
     n = w.shape[1]
     lib = _library()
     dtype = _DTYPES[x.dtype]
-    need = lib.tpat_ln_matmul_smem(k, dtype)
-    have = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-    if need > have:
-        raise ValueError(
-            f"K = {k} needs {need} bytes of shared memory per CTA, the card "
-            f"has {have}")
+    if x.dtype == torch.bfloat16:
+        if not _tc_supports(m, k, n):
+            raise ValueError(
+                f"the bf16 kernel takes K and N that are multiples of 8, got "
+                f"K = {k}, N = {n}")
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("the bf16 kernel takes x and w on 16-byte "
+                             "boundaries")
+    else:
+        need = lib.tpat_ln_matmul_smem(k)
+        have = torch.cuda.get_device_properties(
+            x.device).shared_memory_per_block_optin
+        if need > have:
+            raise ValueError(
+                f"K = {k} needs {need} bytes of shared memory per CTA, the "
+                f"card has {have}")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.tpat_ln_matmul(
