@@ -111,7 +111,21 @@ printing a result:
     P1 'full' and 'noscore' to B1's out bits at B=128; then each probe's
     ``main()`` with a few iterations (the probes' own path, whose launches
     are counted);
-20. the kernels line, with the entries ``layernorm_fwd``,
+20. the finetune path as users run it: ``scripts/ft_esc50.sh``'s flags
+    (ViT-B/16, b128, bf16, keep 0.7 at (3, 6, 9), SpecAug 24/96, roll-mag,
+    2D masking at 0.3) through ``tpat_tpu_torch.cli.finetune.main`` on a
+    seeded corpus written here (50 classes, 256 train and 200 eval clips
+    of 5 s at 16 kHz) from a seeded ViT-B "pretrained" ``.pth`` at the
+    AudioSet grid (its pos embed cropped, its 527-class head dropped), cut
+    to four epochs (dense, anneal at rates 1.0, anneal at 0.85, static; two
+    steps each) with an eval after each: the phases in ``log.txt``, finite
+    losses, one best marker, ``best_model`` and the result file; each
+    step's launches and their geometry equal to phase 8's step of the same
+    kind (recorded there, not typed in), 12 B1 launches per eval forward,
+    every launch of the run accounted for; the ms per step, the loader
+    wait per step and its share of the epoch, the eval ms per clip; then
+    ``--eval`` of ``best_model``, which must give the logged best acc1;
+21. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
     ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
@@ -134,7 +148,9 @@ timed loops, the fastest reported with its backend's name.
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training and pretrain paths, and the probes' mains), error,
-times and bound; the last is ``{"ok": true, "device": {...}}``.
+times and bound, and for the attention kernels B1-B3 ``finetune_launches``,
+their launches in phase 20's run; the last is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -970,7 +986,8 @@ def training_path(sd):
     main path, every launch recorded), then in turns through plain attention
     and the kernels (plain, kernel, kernel, plain) for the ms per step;
     then one recorded hybrid step at bucket 0.9.  Returns the main
-    path's launch counts and {walk: one step's recorded launches}."""
+    path's launch counts, {walk: one step's recorded launches} and {walk:
+    the mean ms of the second steps through the kernels}."""
     from tpat_tpu_torch.cli import profile_train
     from tpat_tpu_torch.engine import schedules
     from tpat_tpu_torch.engine.train import TrainModule
@@ -1022,11 +1039,13 @@ def training_path(sd):
     k1, _, _ = run("fused", False)
     k2, _, _ = run("fused", False)
     x2, _, _ = run("xla", False)
+    step_ms = {}
     for epoch, label in enumerate(EPOCH_LABELS):
         # the second step of each epoch in each run: the first one runs the
         # epoch's widths for the first time (allocator growth, cuBLAS
         # heuristics)
         k = [s[2 * epoch + 1][0] for s in (k1, k2)]
+        step_ms[label] = sum(k) / 2
         p = [s[2 * epoch + 1][0] for s in (x1, x2)]
         first = [s[2 * epoch][0] for s in (k1, k2, x1, x2)]
         widths = sorted({c[2] for c in walks[label]}, reverse=True)
@@ -1047,7 +1066,7 @@ def training_path(sd):
     walks[BUCKET_09] = tuple(calls)
     del state, mod
     torch.cuda.empty_cache()
-    return counts, walks
+    return counts, walks, step_ms
 
 
 def path_kernels_vs_plain(walks):
@@ -2130,6 +2149,275 @@ def probe_mains() -> dict:
     return launches
 
 
+# Phase 20: scripts/ft_esc50.sh through the port's finetune CLI, on a
+# seeded ESC-50-shaped corpus (50 classes, 5-s clips at 16 kHz: 498 fbank
+# frames, padded to the preset's 512)
+FINETUNE_CLASSES = 50
+FINETUNE_BATCH = 128  # ft_esc50.sh's batch_size
+FINETUNE_CLIPS = (256, 200)  # train: 2 steps at b128; eval: 128 + a ragged 72
+FINETUNE_SECONDS = 5.0
+FINETUNE_SEED = 12  # ft_esc50.sh's first seed
+# ft_esc50.sh's epoch counts cut to four epochs: dense (2D masking), anneal
+# at the cosine's t = 0 (rates 1.0: the dense step), anneal at rates 0.85
+# (the hybrid step at bucket 0.9), static.  One anneal epoch alone would be
+# the t = 0 point only, which launches no prefix kernel.
+FINETUNE_FLAGS = ("--epochs", "4", "--shrink_start_epoch", "1",
+                  "--shrink_epochs", "2", "--first_eval_ep", "0",
+                  "--warmup_epochs", "1")
+FINETUNE_PHASES = ["dense", "anneal", "anneal", "static"]
+# phase 8's walk of the same step kind, for each finetune epoch
+FINETUNE_WALKS = (EPOCH_LABELS[0], EPOCH_LABELS[1], BUCKET_09, EPOCH_LABELS[4])
+
+
+def finetune_corpus(root, pretrained_cfg):
+    """Seeded WAVs (a class tone with harmonics, a random gain and noise),
+    the JSON manifests, the label CSV and a seeded ViT-B 'pretrained' .pth
+    at the AudioSet grid (513 pos_embed rows, a 527-class head), so the
+    CLI's import crops the pos embed and drops the head."""
+    import numpy as np
+
+    from tpat_tpu_torch.data.wav import save_wav
+    from tpat_tpu_torch.models.vit import AudioViT
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(FINETUNE_SEED)
+    sr = 16000
+    t = np.arange(int(FINETUNE_SECONDS * sr)) / sr
+    paths = {}
+    for split, n in zip(("train", "eval"), FINETUNE_CLIPS):
+        entries = []
+        for i in range(n):
+            c = int(rng.integers(FINETUNE_CLASSES))
+            f0 = 150.0 + 40.0 * c
+            w = sum(np.sin(2 * math.pi * f0 * k * t + rng.uniform(0, 6.3)) / k
+                    for k in (1, 2, 3))
+            w = 0.2 * rng.uniform(0.5, 1.5) * w + 0.05 * rng.normal(size=t.size)
+            path = os.path.join(root, f"{split}{i:03d}.wav")
+            save_wav(path, w.astype(np.float32), sr)
+            entries.append({"wav": path, "labels": f"/m/c{c:02d}"})
+        paths[split] = os.path.join(root, f"esc_{split}_data.json")
+        with open(paths[split], "w") as f:
+            json.dump({"data": entries}, f)
+    paths["labels"] = os.path.join(root, "esc_class_labels_indices.csv")
+    with open(paths["labels"], "w") as f:
+        f.write("index,mid,display_name\n")
+        for c in range(FINETUNE_CLASSES):
+            f.write(f'{c},/m/c{c:02d},"class {c}"\n')
+    model = AudioViT(pretrained_cfg)
+    paths["pretrained"] = os.path.join(root, "pretrained.pth")
+    torch.save({"model": sharpened_state_dict(model, FINETUNE_SEED)},
+               paths["pretrained"])
+    return paths
+
+
+def finetune_argv(paths, out):
+    """ft_esc50.sh's flags for one fold and seed, with FINETUNE_FLAGS'
+    epoch counts."""
+    return [
+        "--dataset", "esc50", "--nb_classes", str(FINETUNE_CLASSES),
+        "--data_train", paths["train"], "--data_eval", paths["eval"],
+        "--label_csv", paths["labels"],
+        "--batch_size", str(FINETUNE_BATCH), "--blr", "1e-3", "--min_lr", "1e-5",
+        "--base_keep_rate", "0.7", "--drop_loc", "(3, 6, 9)",
+        "--mask_t_prob", "0.3", "--mask_f_prob", "0.3",
+        "--freqm", "24", "--timem", "96", "--roll_mag_aug", "true",
+        "--audioset_pretrained_model_path", paths["pretrained"],
+        "--seed", str(FINETUNE_SEED), "--output_dir", out,
+        "--result_path", os.path.join(out, "train_result.txt"),
+        *FINETUNE_FLAGS,
+    ]
+
+
+def _walk_counts(walk) -> tuple:
+    """(fwd, prefix fwd, bwd rows, bwd cols) launches of a recorded walk."""
+    fwd = sum(1 for c in walk if c[0] == "fwd" and c[8] is None)
+    prefix = sum(1 for c in walk if c[0] == "fwd" and c[8] is not None)
+    bwd = sum(1 for c in walk if c[0] == "bwd")
+    return (fwd, prefix, bwd, bwd)
+
+
+@contextlib.contextmanager
+def _finetune_recording(qa, calls, epochs, evals):
+    """Time and count the CLI's train steps and eval forwards without
+    touching the CLI: ``TrainModule.train_epoch`` gets its batches
+    through a wrapper that times the wait for each batch from the loader,
+    then the step (synchronised), with its launch counts and recorded
+    launches; ``make_eval_step``'s step is timed and counted per forward."""
+    from tpat_tpu_torch.engine import evaluate as eval_lib
+    from tpat_tpu_torch.engine import train as train_lib
+
+    def counts():
+        return _counts(qa)
+
+    def waited(batches, rec):
+        it = iter(batches)
+        while True:
+            t = time.perf_counter()
+            try:
+                x, y = next(it)
+            except StopIteration:
+                return
+            rec["wait_ms"].append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            c0, i0, t0 = counts(), len(calls), time.perf_counter()
+            yield x, y
+            torch.cuda.synchronize()
+            rec["steps"].append(((time.perf_counter() - t0) * 1e3,
+                                 tuple(a - b for a, b in zip(counts(), c0)),
+                                 tuple(calls[i0:])))
+
+    train_epoch = train_lib.TrainModule.train_epoch
+    make_eval_step = eval_lib.make_eval_step
+
+    def timed_epoch(self, state, batches, epoch, **kw):
+        rec = {"epoch": epoch, "wait_ms": [], "steps": []}
+        t0 = time.perf_counter()
+        out = train_epoch(self, state, waited(batches, rec), epoch, **kw)
+        torch.cuda.synchronize()
+        rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        epochs.append(rec)
+        return out
+
+    def timed_eval_step(model, *a, **kw):
+        step = make_eval_step(model, *a, **kw)
+
+        def timed(x):
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            out = step(x)
+            torch.cuda.synchronize()
+            evals.append(((time.perf_counter() - t0) * 1e3,
+                          tuple(a - b for a, b in zip(counts(), c0)),
+                          x.shape[0]))
+            return out
+
+        return timed
+
+    train_lib.TrainModule.train_epoch = timed_epoch
+    eval_lib.make_eval_step = timed_eval_step
+    try:
+        with _recording(qa, calls):
+            yield
+    finally:
+        train_lib.TrainModule.train_epoch = train_epoch
+        eval_lib.make_eval_step = make_eval_step
+
+
+def finetune_path(tmp, walks, phase8_ms, smi):
+    """Phase 20: ``tpat_tpu_torch.cli.finetune.main`` with ft_esc50.sh's
+    flags on the card, from WAVs on disk to the kept best model: each
+    epoch's phase, each step's launches and geometry against phase 8's
+    walk of the same step kind, 12 forward launches per eval forward, the
+    artifacts, and an ``--eval`` of best_model that gives the logged best
+    acc1.  ``phase8_ms`` (phase 8's ms per step by walk, this run) is
+    logged beside the finetune steps.  Returns the run's launches (fwd,
+    prefix fwd, bwd rows, bwd cols)."""
+    import numpy as np
+
+    from tpat_tpu_torch.cli import finetune
+    from tpat_tpu_torch.config import audiomae_vit_base
+    from tpat_tpu_torch.ops import qkv_attention as qa
+
+    t_corpus = time.perf_counter()
+    paths = finetune_corpus(os.path.join(tmp, "esc50"), audiomae_vit_base(
+        target_length=1024, num_classes=527))
+    log(f"finetune corpus: {FINETUNE_CLIPS} clips of {FINETUNE_SECONDS} s "
+        f"written in {time.perf_counter() - t_corpus:.1f} s")
+    out = os.path.join(tmp, "ft_out")
+    argv = finetune_argv(paths, out)
+    # an eval forward is the static forward: the static step's forward
+    # launches
+    per_forward = (_walk_counts(walks[EPOCH_LABELS[4]])[0], 0, 0, 0)
+    calls, epochs, evals = [], [], []
+    with _finetune_recording(qa, calls, epochs, evals):
+        qa.launches = qa.prefix_launches = 0  # the main path starts here
+        qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+        t0 = time.perf_counter()
+        best = finetune.main(finetune.get_args_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _counts(qa)  # the main path ends here
+
+    with open(os.path.join(out, "log.txt")) as f:
+        logs = [json.loads(line) for line in f]
+    phases = [e["train_phase"] for e in logs]
+    if phases != FINETUNE_PHASES:
+        raise AssertionError(f"finetune phases {phases}")
+    for e in logs:
+        if not all(math.isfinite(e[k]) for k in ("train_loss", "test_loss")):
+            raise AssertionError(f"finetune epoch {e['epoch']}: {e}")
+    markers = [p for p in os.listdir(out) if p.startswith("best-")]
+    want = f"best-{best['best_epoch']:03d}-{best['best_score']:.4f}.txt"
+    if markers != [want]:
+        raise AssertionError(f"best markers {markers}, expected [{want}]")
+    for name in ("best_model", "train_result.txt", "args.yaml"):
+        if not os.path.isfile(os.path.join(out, name)):
+            raise AssertionError(f"finetune wrote no {name}")
+    if [r["epoch"] for r in epochs] != list(range(len(FINETUNE_PHASES))):
+        raise AssertionError(f"train epochs recorded {[r['epoch'] for r in epochs]}")
+    summed = [0, 0, 0, 0]
+    for rec, label in zip(epochs, FINETUNE_WALKS):
+        walk = tuple(walks[label])
+        if len(rec["steps"]) != FINETUNE_CLIPS[0] // FINETUNE_BATCH:
+            raise AssertionError(f"epoch {rec['epoch']}: {len(rec['steps'])} steps")
+        for ms, got, step_calls in rec["steps"]:
+            if step_calls != walk or got != _walk_counts(walk):
+                raise AssertionError(
+                    f"finetune epoch {rec['epoch']}: launches {got} at "
+                    f"{len(step_calls)} recorded calls; phase 8's '{label}' "
+                    f"step launched {_walk_counts(walk)} at {len(walk)}")
+            summed = [a + b for a, b in zip(summed, got)]
+    n_eval = -(-FINETUNE_CLIPS[1] // FINETUNE_BATCH) * len(FINETUNE_PHASES)
+    if len(evals) != n_eval:
+        raise AssertionError(f"{len(evals)} eval forwards, expected {n_eval}")
+    for ms, got, rows in evals:
+        if got != per_forward or rows != FINETUNE_BATCH:
+            raise AssertionError(f"eval forward of {rows} rows launched {got}")
+        summed[0] += got[0]
+    if tuple(summed) != launches:
+        raise AssertionError(f"finetune launches {launches}, steps and eval "
+                             f"forwards account for {tuple(summed)}")
+
+    for rec, e in zip(epochs, logs):
+        label = FINETUNE_WALKS[rec["epoch"]]
+        step_ms = [round(s[0], 1) for s in rec["steps"]]
+        wait = sum(rec["wait_ms"])
+        same = (f"{phase8_ms[label]:.1f}" if label in phase8_ms
+                else "not timed")
+        log(f"finetune epoch {rec['epoch']} ({e['train_phase']}, "
+            f"{label}): ms per step {step_ms} (phase 8: {same}); loader "
+            f"wait {[round(w, 1) for w in rec['wait_ms']]} ms, "
+            f"{wait / rec['wall_ms']:.3f} of the epoch's {rec['wall_ms']:.0f} "
+            f"ms; train_loss {e['train_loss']:.4f} test_acc1 "
+            f"{e['test_acc1']:.2f} test_loss {e['test_loss']:.4f} ({smi})")
+    eval_ms = [ms for ms, _, _ in evals]
+    log(f"finetune eval forwards (b{FINETUNE_BATCH}, {per_forward[0]} B1 "
+        f"launches each): "
+        f"{np.median(eval_ms):.2f} ms median of {len(eval_ms)}, "
+        f"{sum(eval_ms) / (FINETUNE_CLIPS[1] * len(FINETUNE_PHASES)):.3f} ms "
+        f"per eval clip ({smi})")
+    log(f"finetune run: {wall_s:.1f} s wall; launches (fwd, prefix fwd, bwd "
+        f"rows, bwd cols) {launches}; best acc1 {best['best_score']:.4f} at "
+        f"epoch {best['best_epoch']}")
+
+    c0 = _counts(qa)
+    stats = finetune.main(finetune.get_args_parser().parse_args(
+        argv + ["--eval", "--finetuned_model_path",
+                os.path.join(out, "best_model"),
+                "--result_path", os.path.join(out, "eval_result.txt")]))
+    eval_launches = tuple(a - b for a, b in zip(_counts(qa), c0))
+    logged = logs[best["best_epoch"]]
+    if stats["acc1"] != logged["test_acc1"]:
+        raise AssertionError(f"--eval of best_model: acc1 {stats['acc1']}, "
+                             f"logged {logged['test_acc1']}")
+    log(f"finetune --eval of best_model: acc1 {stats['acc1']:.4f} (logged "
+        f"{logged['test_acc1']:.4f}), loss {stats['loss']:.6f} (logged "
+        f"{logged['test_loss']:.6f}), launches {eval_launches}")
+    del calls, epochs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _entry(name, source, replaces, launches, err, ms, plain, bound, lib,
            per, **extra):
     """One kernel's record in the kernels line; ``replaces`` is the TPU
@@ -2158,7 +2446,7 @@ def run_phases(tmp):
         raise AssertionError("the serving path launched no qkv_attention kernel")
     model_level(cfg, sd)
     prefix_err, bwd_err = prefix_and_bwd_vs_plain()
-    train_launches, walks = training_path(sd)
+    train_launches, walks, train_step_ms = training_path(sd)
     if min(train_launches) == 0:
         raise AssertionError(f"training launches {train_launches}")
     sums, path_err = path_kernels_vs_plain(walks)
@@ -2177,6 +2465,9 @@ def run_phases(tmp):
     probe_err, probe_times, p3_identity = probes_vs_plain()
     p3_sass = sass_check("ln_matmul", "ln_matmul_bf16_tc_kernel")
     probe_launches = probe_mains()
+    finetune_launches = finetune_path(tmp, walks, train_step_ms, smi)
+    if min(finetune_launches) == 0:
+        raise AssertionError(f"finetune launches {finetune_launches}")
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
     window_launches = {"B5 fwd": esc50[3], "B6 fwd": audioset[4],
@@ -2205,17 +2496,18 @@ def run_phases(tmp):
                     "patch_mean scores, which no library call computes; the "
                     "9 without scores are timed against the library call in "
                     "phase 3",
-               **fwd_build),
+               finetune_launches=finetune_launches[0], **fwd_build),
         _entry("qkv_attention_prefix_fwd", "qkv_attention.cu",
                "tpat_tpu/ops/pallas_attention.py:121", train_launches[1],
                max(prefix_err, path_err["B2"]), step["B2"][0], step["B2"][1],
                bound_of(step["B2bound"]), step["B2lib"], per_step,
-               **fwd_build),
+               finetune_launches=finetune_launches[1], **fwd_build),
         _entry("qkv_attention_bwd_rows", "qkv_attention_bwd.cu", bwd,
                train_launches[2] + audioset[1] + esc50[1], b3_err,
                step["B3"][0], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"], note=bwd_note,
                library_backend=b3["library_backend"],
+               finetune_launches=finetune_launches[2],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_rows_bf16_kernel")),
         _entry("qkv_attention_bwd_cols", "qkv_attention_bwd.cu", bwd,
@@ -2223,6 +2515,7 @@ def run_phases(tmp):
                step["B3"][1], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"], note=bwd_note,
                library_backend=b3["library_backend"],
+               finetune_launches=finetune_launches[3],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_cols_bf16_kernel")),
     ]

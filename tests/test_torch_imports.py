@@ -18,7 +18,16 @@ MODULES = (
     "tpat_tpu_torch.engine.schedules, tpat_tpu_torch.engine.pretrain, "
     "tpat_tpu_torch.ops.layernorm, tpat_tpu_torch.probes.probe_attn_softmax, "
     "tpat_tpu_torch.probes.probe_attn_grouping, "
-    "tpat_tpu_torch.probes.probe_ln_matmul, tpat_tpu_torch.probes._bench"
+    "tpat_tpu_torch.probes.probe_ln_matmul, tpat_tpu_torch.probes._bench, "
+    "tpat_tpu_torch.ops.fbank, tpat_tpu_torch.data, tpat_tpu_torch.data.wav, "
+    "tpat_tpu_torch.data.native, tpat_tpu_torch.data.augment, "
+    "tpat_tpu_torch.data.sampler, tpat_tpu_torch.data.datasets, "
+    "tpat_tpu_torch.data.loader, tpat_tpu_torch.engine.metrics, "
+    "tpat_tpu_torch.engine.evaluate, tpat_tpu_torch.utils.logging, "
+    "tpat_tpu_torch.models.pos_embed, tpat_tpu_torch.utils.torch_import, "
+    "tpat_tpu_torch.utils.checkpoint, tpat_tpu_torch.cli.finetune, "
+    "tpat_tpu_torch.cli.get_norm_stats, "
+    "tpat_tpu_torch.cli.create_voxceleb1_csv"
 )
 FORBIDDEN = ("jax", "flax", "tpat_tpu")  # top-level package names
 LIBRARY_ATTENTION = "scaled_dot_product_attention"

@@ -6,10 +6,12 @@ kernel written by hand for Hopper (``csrc/``, built with nvcc at first use).
 
 Ported so far: the AudioMAE-flavour ViT (``models.vit.AudioViT``: static,
 masked and hybrid forwards) with its serving export (``utils.serving``,
-``cli.export_serving``) and training engine (``engine.train``), MAE
-pretraining (``models.mae``, ``engine.pretrain``), the kernels of those
-paths (``ops.qkv_attention``, ``ops.window_attention``, ``ops.layernorm``)
-and the kernel probes (``probes``).
+``cli.export_serving``), training engine (``engine.train``) and finetune
+CLI (``cli.finetune``: the host data pipeline ``data``, ``ops.fbank``,
+``engine.evaluate``, ``utils.checkpoint``), MAE pretraining
+(``models.mae``, ``engine.pretrain``), the kernels of those paths
+(``ops.qkv_attention``, ``ops.window_attention``, ``ops.layernorm``) and
+the kernel probes (``probes``).
 
 The package never imports ``jax`` nor any module of ``tpat_tpu``: its
 configuration is its own copy (``config``).

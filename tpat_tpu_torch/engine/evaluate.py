@@ -1,0 +1,170 @@
+"""Evaluation loops (``tpat_tpu/engine/evaluate.py``): single-label acc1,
+acc5 and CE loss, and multilabel mAP.
+
+The eval forward is the static ``AudioViT.__call__`` in eval mode under
+``torch.no_grad()``, so it runs the attention forward kernel (B1) on the
+card.  A ragged last batch is padded to the batch size with copies of its
+last row and the padding trimmed from the logits, as the JAX engine pads
+to its compiled shape; the port needs no fixed shape, but keeps the
+padding so the forward sees the same batches.  Logits are fetched one
+batch behind, so the device computes batch b while the host collects b-1.
+
+Not ported: the multi-process gather (``allgather_rows``, ROADMAP A11),
+``custom_rank`` and the intensity band (A6), the device frontend's
+``preprocess`` (A8).  The feature-writer hook is a callback; the
+``FeatureWriter`` itself waits for A7.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpat_tpu_torch.engine import metrics as metrics_lib
+from tpat_tpu_torch.models.vit import AudioViT
+
+
+def _refuse_unported(custom_rank=None, intensity_band=None, preprocess=None,
+                     allgather=False):
+    if custom_rank is not None or intensity_band is not None:
+        raise NotImplementedError(
+            "custom_rank and the intensity band are not ported yet: ROADMAP A6"
+        )
+    if preprocess is not None:
+        raise NotImplementedError(
+            "the device frontend (preprocess) is not ported yet: ROADMAP A8"
+        )
+    if allgather:
+        raise NotImplementedError(
+            "the multi-process eval gather (allgather_rows) is not ported "
+            "yet: ROADMAP A11"
+        )
+
+
+def make_eval_step(
+    model: AudioViT,
+    extract_features: bool = False,
+    custom_rank=None,
+    intensity_band=None,
+    preprocess=None,
+) -> Callable[[torch.Tensor], object]:
+    """The eval forward: logits, or (logits, features) with
+    ``extract_features``."""
+    _refuse_unported(custom_rank, intensity_band, preprocess)
+
+    def step(x: torch.Tensor):
+        model.eval()
+        with torch.no_grad():
+            return model(x, extract_features=extract_features)
+
+    return step
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _run_batches(
+    eval_step,
+    batches: Iterable,
+    batch_size: int,
+    device,
+    feature_writer: Optional[Callable[[Dict, int], None]] = None,
+    index_to_name: Optional[Dict[int, str]] = None,
+) -> Tuple[np.ndarray, np.ndarray, list]:
+    """``batches`` yields (x, y) or (x, y, n_valid), numpy or tensors; rows
+    past n_valid are padding.  Returns (logits, targets, rows per batch)."""
+    all_logits, all_targets = [], []
+    pending = None
+
+    def _consume(out, n, y, bidx):
+        if feature_writer is not None:
+            logits, features = out
+            features = {k: _host(v[:n]) for k, v in features.items()}
+            # trim before the argmax: rows past n are padding
+            y_n = np.asarray(y)[:n]
+            features["labels"] = (
+                [index_to_name[int(i)] for i in np.argmax(y_n, axis=1)]
+                if index_to_name is not None else ["temp"] * n
+            )
+            feature_writer(features, bidx)
+        else:
+            logits = out
+        all_logits.append(_host(logits[:n]))
+        all_targets.append(np.asarray(y)[:n])
+
+    for bidx, item in enumerate(batches):
+        x, y = item[0], item[1]
+        n = item[2] if len(item) > 2 else x.shape[0]
+        x = torch.as_tensor(x, device=device)
+        if x.shape[0] < batch_size:
+            pad = batch_size - x.shape[0]
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        out = eval_step(x)
+        if pending is not None:
+            _consume(*pending)
+        pending = (out, n, y, bidx)
+    if pending is not None:
+        _consume(*pending)
+    sizes = [len(a) for a in all_logits]
+    return np.concatenate(all_logits), np.concatenate(all_targets), sizes
+
+
+def evaluate_classification(
+    model: AudioViT,
+    batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+    batch_size: int,
+    device=None,
+    feature_writer=None,
+    index_to_name=None,
+    custom_rank=None,
+    intensity_band=None,
+    preprocess=None,
+    allgather: bool = False,
+) -> Dict[str, float]:
+    """Single-label eval: acc1, acc5 and the CE loss on argmax targets.
+    ``device`` defaults to the model's."""
+    _refuse_unported(custom_rank, intensity_band, preprocess, allgather)
+    device = device or next(model.parameters()).device
+    step = make_eval_step(model, extract_features=feature_writer is not None)
+    logits, targets, sizes = _run_batches(
+        step, batches, batch_size, device, feature_writer, index_to_name
+    )
+    tgt_idx = np.argmax(targets, axis=1)
+    acc1, acc5 = metrics_lib.topk_accuracy(logits, tgt_idx, ks=(1, 5))
+    logp = torch.log_softmax(torch.from_numpy(logits), dim=-1).numpy()
+    # the reference's reported loss is an UNWEIGHTED mean of per-batch CE
+    # means (metric_logger.update(loss=...) with n=1,
+    # engine_finetune.py:194): a ragged last batch weighs as much as a full
+    # one
+    per_batch, off = [], 0
+    for s in sizes:
+        if s == 0:
+            continue
+        idx = np.arange(off, off + s)
+        per_batch.append(float(-np.mean(logp[idx, tgt_idx[idx]])))
+        off += s
+    loss = float(np.mean(per_batch)) if per_batch else 0.0
+    return {"acc1": float(acc1), "acc5": float(acc5), "loss": loss}
+
+
+def evaluate_multilabel(
+    model: AudioViT,
+    batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+    batch_size: int,
+    device=None,
+    feature_writer=None,
+    preprocess=None,
+    allgather: bool = False,
+) -> Dict[str, float]:
+    """Multilabel eval: the mean over classes of the average precision."""
+    _refuse_unported(preprocess=preprocess, allgather=allgather)
+    device = device or next(model.parameters()).device
+    step = make_eval_step(model, extract_features=feature_writer is not None)
+    logits, targets, _sizes = _run_batches(
+        step, batches, batch_size, device, feature_writer
+    )
+    return {"mAP": metrics_lib.mean_average_precision(logits, targets)}

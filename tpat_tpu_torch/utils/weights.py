@@ -9,7 +9,7 @@
 - ``jax_flat_grads``: a module's parameter gradients under the same flat
   flax keys, to hold them against ``jax.grad``'s tree;
 - ``load_pth``: a reference ``.pth``, unwrapped from AudioMAE's
-  ``{'model': state_dict}`` envelope.
+  ``{'model': state_dict}`` envelope (``state_dict_of``).
 
 The exporter helpers are the port's own copies of
 ``tpat_tpu/utils/torch_export.py:19-63,85-128`` (pure numpy), so the port
@@ -176,10 +176,17 @@ def jax_flat_grads(
     )
 
 
-def load_pth(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference ``.pth`` state dict (tensors only), unwrapping the
-    AudioMAE ``{'model': state_dict, ...}`` envelope."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+def state_dict_of(obj) -> Dict[str, torch.Tensor]:
+    """The state dict inside a loaded reference ``.pth``: the AudioMAE
+    ``{'model': state_dict, ...}`` envelope unwrapped, tensors only, the
+    DataParallel ``module.`` prefix stripped (as the JAX package's
+    ``load_torch_state_dict``)."""
     if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
         obj = obj["model"]
-    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+    return {k.removeprefix("module."): v for k, v in obj.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """Read a reference ``.pth`` state dict (``state_dict_of``)."""
+    return state_dict_of(torch.load(path, map_location="cpu", weights_only=True))
