@@ -125,7 +125,30 @@ printing a result:
     every launch of the run accounted for; the ms per step, the loader
     wait per step and its share of the epoch, the eval ms per clip; then
     ``--eval`` of ``best_model``, which must give the logged best acc1;
-21. the kernels line, with the entries ``layernorm_fwd``,
+21. the AST path as users run it: ``scripts/ast_run_esc.sh``'s flags
+    through ``tpat_tpu_torch.cli.run_ast.main`` on phase 20's corpus from a
+    seeded AST "AudioSet-pretrained" ``.pth`` in the reference layout
+    (``module.v.*`` and ``module.mlp_head.*``, 514 pos rows, a 527-class
+    head), b48 bf16, keep 0.7 at (3, 6, 9), cut to four epochs (dense,
+    anneal at rates 1.0, anneal at 0.85 = hybrid bucket 0.9, static; five
+    steps each) with an eval of the 200 clips after each: ``result.csv``
+    finite, ``best_result.csv``, ``progress.pkl``, ``args.yaml`` and
+    ``models/best_audio_model``; each step's and each eval forward's
+    launches equal to those the configuration implies (``ast_walk``: mode
+    'cls', 2 extra tokens, N 258 -> 182 -> 128 -> 91 static, the bucket
+    widths and prefix kv_valid in the anneal, 12 B1 per eval forward),
+    every launch of the run accounted for; the ms per step, the loader
+    wait and its share, the card ms per eval clip; ``--eval`` of
+    ``best_audio_model`` (the logged best score exactly), with
+    ``--custom_rank mean`` (no launch carries scores; take_rows widths 258
+    -> 180 -> 125 -> 87) and with the intensity band after block 3 (4 B1
+    launches per forward, the rest masked plain attention); one static
+    forward at ast_run_audioset.sh's geometry (1024 frames, N = 514, b64),
+    'fused' vs 'xla' in f32 (logits within the model-level tolerance, the
+    same kept tokens at every drop block), its bf16 launches recorded; then
+    B1-B3 vs plain at every
+    recorded AST geometry, timed beside the bound and the library call;
+22. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
     ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
@@ -148,9 +171,11 @@ timed loops, the fastest reported with its backend's name.
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training and pretrain paths, and the probes' mains), error,
-times and bound, and for the attention kernels B1-B3 ``finetune_launches``,
-their launches in phase 20's run; the last is ``{"ok": true, "device":
-{...}}``.
+times and bound, and for the attention kernels B1-B3 ``finetune_launches``
+and ``ast_launches``, their launches in phase 20's and phase 21's runs,
+and ``ast_ms``, their time per AST hybrid train step; B2's ``noscore``
+sums its calls without scores beside SDPA with the key mask; the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1136,6 +1161,9 @@ def path_kernels_vs_plain(walks):
         s = {"B1": [0.0, 0.0], "B2": [0.0, 0.0], "B3": [0.0] * 4}
         for key in ("B1", "B2", "B3"):
             s[key + "bound"], s[key + "lib"], s[key + "backends"] = {}, 0.0, set()
+            # the forward calls without scores, which the library call
+            # computes: their count, kernel ms and library ms
+            s[key + "noscore"] = [0, 0.0, 0.0]
         for call in walk:
             key = "B3" if call[0] == "bwd" else "B1" if call[8] is None else "B2"
             s[key] = [a + t for a, t in zip(s[key], ms[call])]
@@ -1143,15 +1171,28 @@ def path_kernels_vs_plain(walks):
             s[key + "bound"][by] = s[key + "bound"].get(by, 0.0) + bms
             s[key + "lib"] = (None if lib_ms is None or s[key + "lib"] is None
                               else s[key + "lib"] + lib_ms)
+            if key != "B3" and call[6] is None:
+                s[key + "noscore"] = [s[key + "noscore"][0] + 1,
+                                      s[key + "noscore"][1] + ms[call][0],
+                                      s[key + "noscore"][2] + lib_ms]
             if backend is not None:
                 s[key + "backends"].add(backend)
         sums[name] = s
         b1, b2, b3 = s["B1"], s["B2"], s["B3"]
-        log(f"per b128 train step, {name}: B1 {b1[0]:.4f} ms (plain "
-            f"{b1[1]:.4f}); B2 {b2[0]:.4f} ms (plain {b2[1]:.4f}); B3 rows "
-            f"{b3[0]:.4f} + cols {b3[1]:.4f} ms, through "
-            f"fused_qkv_attention_bwd {b3[2]:.4f} ms (plain backward "
-            f"{b3[3]:.4f})")
+        n2, k2, l2 = s["B2noscore"]
+
+        def yardsticks(key):
+            lib = s[key + "lib"]
+            lib = "none (scores)" if lib is None else f"{lib:.4f}"
+            return (f"library {lib}, bound "
+                    f"{sum(s[key + 'bound'].values()):.4f}")
+
+        log(f"per step, {name}: B1 {b1[0]:.4f} ms (plain {b1[1]:.4f}, "
+            f"{yardsticks('B1')}); B2 {b2[0]:.4f} ms (plain {b2[1]:.4f}, "
+            f"{yardsticks('B2')}; its {n2} calls without scores {k2:.4f} ms, "
+            f"library {l2:.4f}); B3 rows {b3[0]:.4f} + cols {b3[1]:.4f} ms, "
+            f"through fused_qkv_attention_bwd {b3[2]:.4f} ms (plain backward "
+            f"{b3[3]:.4f}, {yardsticks('B3')})")
     log("kernel vs plain at the training path's geometries: worst abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     return sums, worst
@@ -2415,7 +2456,298 @@ def finetune_path(tmp, walks, phase8_ms, smi):
         f"{logged['test_loss']:.6f}), launches {eval_launches}")
     del calls, epochs
     torch.cuda.empty_cache()
-    return launches
+    return launches, paths
+
+
+# Phase 21: scripts/ast_run_esc.sh through the port's run_ast, on phase 20's
+# corpus, from a seeded AST "AudioSet-pretrained" .pth
+AST_BATCH = 48  # ast_run_esc.sh's batch_size: 5 steps of 256 clips, 5 evals
+# ast_run_esc.sh's 30 epochs (shrink from 5 over 10) cut to four, counted
+# from 1: dense, anneal at the cosine's t = 0 (the dense step), anneal at
+# rates 0.85 (the hybrid step at bucket 0.9), static
+AST_FLAGS = ("--n-epochs", "4", "--shrink_start_epoch", "2",
+             "--shrink_epochs", "2")
+AST_PHASES = ("dense", "dense", "hybrid", "static")  # the step of each epoch
+AST_AUDIOSET = (1024, 64)  # ast_run_audioset.sh's frames and batch
+AST_WIDTHS = [258, 182, 128, 91]  # ESC-50 (512 frames) at keep 0.7
+AST_BAND = ("--drop_token_blk_idx", "3", "--retain_min", "-0.6170",
+            "--retain_max", "1.0952")  # an SPC-2 cluster, ast_run_sc.sh:15-17
+
+
+def ast_pretrained_pth(path, seed):
+    """A seeded AST 'AudioSet-pretrained' .pth in the reference layout
+    (``module.v.*``, ``module.mlp_head.{0,1}.*``) from the port's own
+    ViT-B AST at the AudioSet grid: 514 pos rows, a 527-class head."""
+    from tpat_tpu_torch.config import ast_vit_base
+    from tpat_tpu_torch.models.vit import AudioViT
+
+    sd = sharpened_state_dict(
+        AudioViT(ast_vit_base(target_length=1024, num_classes=527)), seed)
+    torch.save({("module." if k.startswith("mlp_head.") else "module.v.") + k: v
+                for k, v in sd.items()}, path)
+
+
+def ast_argv(paths, pth, out):
+    """ast_run_esc.sh's flags for one fold, with AST_FLAGS' epoch counts."""
+    return [
+        "--dataset", "esc50", "--n_class", str(FINETUNE_CLASSES),
+        "--audio_length", "512", "--data-train", paths["train"],
+        "--data-val", paths["eval"], "--label-csv", paths["labels"],
+        "--lr", "1e-5", "-b", str(AST_BATCH), "--freqm", "24", "--timem", "96",
+        "--mixup", "0", "--dataset_mean", "-6.6268077",
+        "--dataset_std", "5.358466", "--metrics", "acc", "--loss", "CE",
+        "--warmup", "False", "--lrscheduler_start", "5",
+        "--lrscheduler_step", "1", "--lrscheduler_decay", "0.85",
+        "--base_keep_rate", "0.7", "--drop_loc", "(3, 6, 9)",
+        "--imagenet_pretrain", "True", "--audioset_pretrain", "True",
+        "--audioset_pretrained_model_path", pth, "--exp-dir", out, *AST_FLAGS,
+    ]
+
+
+def ast_walk(cfg, batch, rates, *, bucket=None, num_left=None, rank=False,
+             unmasked_until=None, train=False):
+    """The launches one AST step or eval forward must make, as ``_recording``
+    records them, from the configuration alone: a multiset (Counter) of
+    (kind, B, N, 3C, bf16, H, mode, 2, kv_valid, False).  Static widths
+    (the drop blocks emit 'cls' scores); ``rank``: the custom-rank
+    forward's take_rows widths, no scores; ``bucket``: the hybrid step's
+    bucket widths, the prefix form after the first drop block at kv_valid
+    = 2 + the last drop block's ``num_left``; ``unmasked_until``: the band
+    forward, whose blocks past it attend through the masked plain path.
+    ``train`` adds one backward per forward, without a score cotangent."""
+    import collections
+
+    from tpat_tpu_torch.config import compose_kept_counts
+    from tpat_tpu_torch.ops import pruning
+
+    e = cfg.num_extra_tokens
+    fwd = []
+    n, prefix = e + cfg.num_patches, None
+    first = min(cfg.drop_loc)
+    counts = compose_kept_counts(bucket, cfg.num_patches) if bucket else None
+    for i in range(cfg.depth):
+        if unmasked_until is not None and i > unmasked_until:
+            break
+        drop = rates[i] < 1.0
+        kv = None if bucket is None or i <= first else e + prefix
+        mode = "cls" if drop and not rank else None
+        fwd.append(("fwd", batch, n, 3 * cfg.embed_dim, torch.bfloat16,
+                    cfg.num_heads, mode, e, kv, False))
+        if drop and bucket is not None:
+            n, prefix = e + counts[i], num_left[i]
+        elif drop:
+            k = pruning.num_left_tokens(rates[i], n - e)
+            n = k if rank else e + k
+    bwd = [("bwd",) + c[1:] for c in fwd] if train else []
+    return collections.Counter(fwd + bwd)
+
+
+def ast_path(tmp, paths, smi):
+    """Phase 21: ``tpat_tpu_torch.cli.run_ast.main`` with ast_run_esc.sh's
+    flags on the card, from WAVs on disk to ``models/best_audio_model``:
+    each epoch's steps and each eval forward against their expected
+    launches (``ast_walk``), every launch of the run accounted for, the
+    artifacts, ``--eval`` of the kept model (the logged best score), with
+    ``--custom_rank mean`` (no scores anywhere) and with the intensity band;
+    then one static forward at ast_run_audioset.sh's geometry, 'fused' vs
+    'xla' in f32.  Returns (the run's launches, {walk: one step's or
+    forward's recorded launches})."""
+    import collections
+
+    import numpy as np
+
+    from tpat_tpu_torch.cli import run_ast
+    from tpat_tpu_torch.config import ast_vit_base
+    from tpat_tpu_torch.engine import schedules
+    from tpat_tpu_torch.ops import qkv_attention as qa
+
+    pth = os.path.join(tmp, "ast_audioset.pth")
+    ast_pretrained_pth(pth, FINETUNE_SEED)
+    out = os.path.join(tmp, "ast_out")
+    argv = ast_argv(paths, pth, out)
+    _, cfg = run_ast.configs(run_ast.get_parser().parse_args(argv))
+    steps_per_epoch = FINETUNE_CLIPS[0] // AST_BATCH
+    evals_per_run = -(-FINETUNE_CLIPS[1] // AST_BATCH)
+    rates = schedules.scheduled_keep_rates(
+        3 * steps_per_epoch, 3, shrink_start_epoch=2, total_epochs=4,
+        iters_per_epoch=steps_per_epoch, base_keep_rate=0.7,
+        num_blocks=cfg.depth, drop_loc=cfg.drop_loc)
+    bucket = schedules.bucket_keep_rates(rates, base_keep_rate=0.7, n_buckets=4)
+    num_left = schedules.masked_kept_counts(rates, cfg.drop_loc, cfg.num_patches)
+    d0 = cfg.drop_loc[0]
+    if not (abs(rates[d0] - 0.85) < 1e-9 and abs(bucket[d0] - 0.9) < 1e-9):
+        raise AssertionError(f"epoch 3's rates {rates}, bucket {bucket}")
+    ones = (1.0,) * cfg.depth
+    want = {
+        "dense": ast_walk(cfg, AST_BATCH, ones, train=True),
+        "hybrid": ast_walk(cfg, AST_BATCH, rates, bucket=bucket,
+                           num_left=num_left, train=True),
+        "static": ast_walk(cfg, AST_BATCH, cfg.keep_rates, train=True),
+        "eval": ast_walk(cfg, AST_BATCH, cfg.keep_rates),
+    }
+    walk_n = sorted({c[2] for c in want["static"]}, reverse=True)
+    if walk_n != AST_WIDTHS:
+        raise AssertionError(f"AST ESC-50 static widths {walk_n}")
+
+    calls, epochs, evals = [], [], []
+    with _finetune_recording(qa, calls, epochs, evals):
+        qa.launches = qa.prefix_launches = 0  # the main path starts here
+        qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+        t0 = time.perf_counter()
+        best = run_ast.main(run_ast.get_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _counts(qa)  # the main path ends here
+
+    result = np.loadtxt(os.path.join(out, "result.csv"), delimiter=",")
+    if result.shape != (4, 4) or not np.isfinite(result).all():
+        raise AssertionError(f"result.csv {result}")
+    if list(result[:, 0]) != [1, 2, 3, 4]:
+        raise AssertionError(f"result.csv epochs {result[:, 0]}")
+    for name in ("best_result.csv", "progress.pkl", "args.yaml",
+                 os.path.join("models", "best_audio_model")):
+        if not os.path.isfile(os.path.join(out, name)):
+            raise AssertionError(f"run_ast wrote no {name}")
+    best_epoch, best_score = np.loadtxt(os.path.join(out, "best_result.csv"),
+                                        delimiter=",")
+    if best_score != best or result[int(best_epoch) - 1, 1] != best:
+        raise AssertionError(f"best {best} vs best_result.csv "
+                             f"{(best_epoch, best_score)} and result.csv")
+    if [r["epoch"] for r in epochs] != [1, 2, 3, 4]:
+        raise AssertionError(f"epochs recorded {[r['epoch'] for r in epochs]}")
+    walks, summed = {}, collections.Counter()
+    for rec, kind in zip(epochs, AST_PHASES):
+        if len(rec["steps"]) != steps_per_epoch:
+            raise AssertionError(f"AST epoch {rec['epoch']}: "
+                                 f"{len(rec['steps'])} steps")
+        for ms, got, step_calls in rec["steps"]:
+            if collections.Counter(step_calls) != want[kind]:
+                raise AssertionError(
+                    f"AST epoch {rec['epoch']} ({kind} step): launches "
+                    f"{sorted(collections.Counter(step_calls).items(), key=str)}"
+                    f", expected {sorted(want[kind].items(), key=str)}")
+            if got != _walk_counts(step_calls):
+                raise AssertionError(f"AST epoch {rec['epoch']}: counters "
+                                     f"{got}, recorded {_walk_counts(step_calls)}")
+            walks.setdefault(f"AST b{AST_BATCH} {kind} train step", step_calls)
+            summed.update(step_calls)
+    if len(evals) != evals_per_run * 4:
+        raise AssertionError(f"{len(evals)} AST eval forwards")
+    for ms, got, rows in evals:
+        if rows != AST_BATCH or got != (cfg.depth, 0, 0, 0):
+            raise AssertionError(f"AST eval forward of {rows} rows: {got}")
+    train_calls = sum((list(s[2]) for r in epochs for s in r["steps"]), [])
+    eval_only = collections.Counter(calls) - collections.Counter(train_calls)
+    if eval_only != collections.Counter({k: v * len(evals)
+                                         for k, v in want["eval"].items()}):
+        raise AssertionError("AST eval forwards: launches differ from "
+                             "the static forward's")
+    walks[f"AST b{AST_BATCH} eval forward"] = tuple(want["eval"].elements())
+    summed.update(eval_only)
+    if _walk_counts(list(summed.elements())) != launches or _walk_counts(calls) != launches:
+        raise AssertionError(f"AST launches {launches}, steps and eval "
+                             f"forwards account for "
+                             f"{_walk_counts(list(summed.elements()))}")
+    for rec, kind in zip(epochs, AST_PHASES):
+        wait = sum(rec["wait_ms"])
+        log(f"AST epoch {rec['epoch']} ({kind} step): ms per step "
+            f"{[round(s[0], 1) for s in rec['steps']]}; loader wait "
+            f"{[round(w, 1) for w in rec['wait_ms']]} ms, "
+            f"{wait / rec['wall_ms']:.3f} of the epoch's "
+            f"{rec['wall_ms']:.0f} ms; score "
+            f"{result[rec['epoch'] - 1, 1]:.4f} train loss "
+            f"{result[rec['epoch'] - 1, 2]:.4f} ({smi})")
+    eval_ms = [ms for ms, _, _ in evals]
+    log(f"AST eval forwards (b{AST_BATCH}, {cfg.depth} B1 launches each): "
+        f"{np.median(eval_ms):.2f} ms median of {len(eval_ms)}, "
+        f"{sum(eval_ms) / (FINETUNE_CLIPS[1] * 4):.3f} card ms per eval clip "
+        f"({smi})")
+    log(f"AST run: {wall_s:.1f} s wall; launches (fwd, prefix fwd, bwd rows, "
+        f"bwd cols) {launches}; best acc {best:.4f} at epoch {int(best_epoch)}")
+
+    def evaluate(extra, what, want_walk):
+        ev, got = [], []
+        with _finetune_recording(qa, got, [], ev):
+            score = run_ast.main(run_ast.get_parser().parse_args(
+                argv + ["--eval", *extra]))
+        if not math.isfinite(score) or len(ev) != evals_per_run:
+            raise AssertionError(f"--eval {what}: score {score}, {len(ev)} "
+                                 "forwards")
+        per = collections.Counter({k: v * evals_per_run
+                                   for k, v in want_walk.items()})
+        if collections.Counter(got) != per:
+            raise AssertionError(f"--eval {what}: launches "
+                                 f"{sorted(collections.Counter(got).items(), key=str)}")
+        saved = np.loadtxt(os.path.join(out, "eval_result.csv"))
+        if list(saved) != [-1.0, score]:
+            raise AssertionError(f"--eval {what}: eval_result.csv {saved}")
+        log(f"AST --eval {what}: acc {score:.4f}, "
+            f"{sum(want_walk.values())} launches per forward")
+        walks[f"AST b{AST_BATCH} eval forward, {what}"] = tuple(
+            got[:sum(want_walk.values())])
+        return score
+
+    if evaluate([], "best_audio_model", want["eval"]) != best:
+        raise AssertionError("--eval of best_audio_model differs from the "
+                             "logged best")
+    evaluate(["--custom_rank", "mean"], "custom_rank mean",
+             ast_walk(cfg, AST_BATCH, cfg.keep_rates, rank=True))
+    band_blk = int(AST_BAND[1])
+    evaluate(list(AST_BAND), f"intensity band after block {band_blk}",
+             ast_walk(cfg, AST_BATCH, cfg.keep_rates,
+                      unmasked_until=min(band_blk, *cfg.drop_loc)))
+    walks.update(ast_audioset_forward())
+    torch.cuda.empty_cache()
+    return launches, walks
+
+
+def ast_audioset_forward() -> dict:
+    """One static forward at ast_run_audioset.sh's geometry (1024 frames,
+    N = 514, b64, keep 0.7 at (3, 6, 9)) from sharpened weights: 'fused'
+    vs 'xla' in f32 (logits within the model-level tolerance, the same
+    kept tokens at each drop block, composed to patch ids as phase 10
+    does), and the bf16 forward's launches recorded (514 -> 361 -> 254 ->
+    179).  Returns {walk: its launches}."""
+    from tpat_tpu_torch.config import ast_vit_base
+    from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.ops import qkv_attention as qa
+
+    frames, b = AST_AUDIOSET
+    cfg = ast_vit_base(target_length=frames, num_classes=527,
+                       base_keep_rate=0.7, drop_loc=(3, 6, 9))
+    sd = sharpened_state_dict(AudioViT(cfg), SEED + 7)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(b, 1, 128, frames, device="cuda", generator=gen)
+
+    def run(dtype, impl, calls=None):
+        m = AudioViT(dataclasses.replace(cfg, compute_dtype=dtype,
+                                         attention_impl=impl), device="cuda")
+        m.load_state_dict(sd, strict=True)
+        m.eval()
+        with torch.no_grad(), _recording(qa, calls if calls is not None else []):
+            return m(x, extract_features=True)
+
+    lf, ff = run("float32", "fused")
+    lx, fx = run("float32", "xla")
+    # the kept tokens, not their order: the CLS-row scores of 512 patches
+    # hold exact f32 ties and gaps of 1e-7 relative, below the kernel's
+    # ~4e-6 difference from plain, so tied tokens may rank either way
+    picked = [[f[f"block-{i}.topk_idx"] for i in cfg.drop_loc] for f in (ff, fx)]
+    reordered = _same_kept_tokens("AST N=514 f32 fused vs xla", *picked,
+                                  [None] * 3, cfg.num_patches)
+    torch.testing.assert_close(lf, lx, rtol=F32_LOGIT_RTOL, atol=F32_LOGIT_ATOL)
+    calls = []
+    lb, _ = run("bfloat16", "fused", calls)
+    widths = sorted({c[2] for c in calls}, reverse=True)
+    if widths != [514, 361, 254, 179] or len(calls) != 12 \
+            or not torch.isfinite(lb).all():
+        raise AssertionError(f"AST N=514 bf16 forward: widths {widths}, "
+                             f"{len(calls)} launches")
+    log(f"AST AudioSet geometry (b{b}, N 514 -> 361 -> 254 -> 179): f32 fused "
+        f"vs xla keep the same tokens at blocks 3/6/9 (rows ranked in another "
+        f"order: {reordered}), logits max abs diff "
+        f"{(lf - lx).abs().max().item():.3g}; bf16 forward finite")
+    return {f"AST b{b} AudioSet-geometry eval forward": tuple(calls)}
 
 
 def _entry(name, source, replaces, launches, err, ms, plain, bound, lib,
@@ -2465,9 +2797,13 @@ def run_phases(tmp):
     probe_err, probe_times, p3_identity = probes_vs_plain()
     p3_sass = sass_check("ln_matmul", "ln_matmul_bf16_tc_kernel")
     probe_launches = probe_mains()
-    finetune_launches = finetune_path(tmp, walks, train_step_ms, smi)
+    finetune_launches, corpus = finetune_path(tmp, walks, train_step_ms, smi)
     if min(finetune_launches) == 0:
         raise AssertionError(f"finetune launches {finetune_launches}")
+    ast_launches, ast_walks = ast_path(tmp, corpus, smi)
+    if min(ast_launches) == 0:
+        raise AssertionError(f"AST launches {ast_launches}")
+    ast_sums, ast_err = path_kernels_vs_plain(ast_walks)
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
     window_launches = {"B5 fwd": esc50[3], "B6 fwd": audioset[4],
@@ -2480,7 +2816,11 @@ def run_phases(tmp):
     bwd_note = ("plain_ms, bound_ms and library_ms are of the whole backward, "
                 "which the rows and cols kernels compute together; pair_ms is "
                 "both kernels through fused_qkv_attention_bwd")
-    b3_err = max(bwd_err, path_err["B3"], pre_err["B3"])
+    b3_err = max(bwd_err, path_err["B3"], pre_err["B3"], ast_err["B3"])
+    ast_step = ast_sums[f"AST b{AST_BATCH} hybrid train step"]
+    ast_note = (f"ast_launches: phase 21's run_ast run (ast_run_esc.sh, b"
+                f"{AST_BATCH}, 'cls' scores, 2 extra tokens); ast_ms: one "
+                f"b{AST_BATCH} bf16 hybrid AST train step at bucket 0.9")
     b3 = dict(plain=step["B3"][3], bound=bound_of(step["B3bound"]),
               lib=step["B3lib"], per=per_step, pair_ms=step["B3"][2],
               note=bwd_note,
@@ -2489,33 +2829,47 @@ def run_phases(tmp):
     kernels = [
         _entry("qkv_attention_fwd", "qkv_attention.cu", "tpat_tpu/ops/pallas_attention.py:121",
                serve_launches + train_launches[0] + audioset[0] + esc50[0],
-               max(grid_err, timed_err, path_err["B1"], pre_err["B1"]),
+               max(grid_err, timed_err, path_err["B1"], pre_err["B1"],
+                   ast_err["B1"]),
                ms, plain_ms, bound_of(serve_bound), None,
                "one b128 bf16 serving forward (12 calls)",
                note="3 of the 12 calls (the drop blocks 3, 6, 9) emit "
                     "patch_mean scores, which no library call computes; the "
                     "9 without scores are timed against the library call in "
-                    "phase 3",
-               finetune_launches=finetune_launches[0], **fwd_build),
+                    "phase 3; " + ast_note,
+               finetune_launches=finetune_launches[0],
+               ast_launches=ast_launches[0], ast_ms=ast_step["B1"][0],
+               **fwd_build),
         _entry("qkv_attention_prefix_fwd", "qkv_attention.cu",
                "tpat_tpu/ops/pallas_attention.py:121", train_launches[1],
-               max(prefix_err, path_err["B2"]), step["B2"][0], step["B2"][1],
-               bound_of(step["B2bound"]), step["B2lib"], per_step,
-               finetune_launches=finetune_launches[1], **fwd_build),
+               max(prefix_err, path_err["B2"], ast_err["B2"]), step["B2"][0],
+               step["B2"][1], bound_of(step["B2bound"]), step["B2lib"],
+               per_step,
+               noscore={"calls": step["B2noscore"][0],
+                        "ms": step["B2noscore"][1],
+                        "library_ms": step["B2noscore"][2]},
+               note="library_ms is null: 2 of the step's 8 calls emit "
+                    "patch_mean scores; noscore sums the calls without "
+                    "scores, which SDPA with the key mask computes; " + ast_note,
+               finetune_launches=finetune_launches[1],
+               ast_launches=ast_launches[1], ast_ms=ast_step["B2"][0],
+               **fwd_build),
         _entry("qkv_attention_bwd_rows", "qkv_attention_bwd.cu", bwd,
                train_launches[2] + audioset[1] + esc50[1], b3_err,
                step["B3"][0], b3["plain"], b3["bound"], b3["lib"], per_step,
-               pair_ms=b3["pair_ms"], note=bwd_note,
+               pair_ms=b3["pair_ms"], note=bwd_note + "; " + ast_note,
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[2],
+               ast_launches=ast_launches[2], ast_ms=ast_step["B3"][0],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_rows_bf16_kernel")),
         _entry("qkv_attention_bwd_cols", "qkv_attention_bwd.cu", bwd,
                train_launches[3] + audioset[2] + esc50[2], b3_err,
                step["B3"][1], b3["plain"], b3["bound"], b3["lib"], per_step,
-               pair_ms=b3["pair_ms"], note=bwd_note,
+               pair_ms=b3["pair_ms"], note=bwd_note + "; " + ast_note,
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[3],
+               ast_launches=ast_launches[3], ast_ms=ast_step["B3"][1],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_cols_bf16_kernel")),
     ]

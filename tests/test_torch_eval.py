@@ -186,9 +186,7 @@ def test_evaluate_refuses_unported():
     kw = _kw()
     _, _, model = _pair(kw)
     batches = _batches(kw, (2,))
-    for bad, item in ((dict(custom_rank="mean"), "A6"),
-                      (dict(intensity_band=(0.0, 1.0, 1)), "A6"),
-                      (dict(preprocess=lambda x: x), "A8"),
+    for bad, item in ((dict(preprocess=lambda x: x), "A8"),
                       (dict(allgather=True), "A11")):
         with pytest.raises(NotImplementedError, match=item):
             evaluate.evaluate_classification(model, batches, 2, **bad)

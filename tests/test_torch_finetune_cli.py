@@ -203,9 +203,6 @@ def test_pretrained_head_kernel_reinitialized(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model", "ast_vit_base"], "A5"),
-    (["--custom_rank", "mean"], "A6"),
-    (["--eval", "--finetuned_model_path", "m", "--drop_token_blk_idx", "3"], "A6"),
     (["--eval", "--finetuned_model_path", "m", "--flag_extract_features", "true",
       "--extract_features_path", "f"], "A7"),
     (["--device_frontend", "true"], "A8"),
@@ -301,3 +298,98 @@ def test_finetune_cli_matches_jax_cli(corpus, tmp_path, monkeypatch):
         [p for p in os.listdir(jout) if p.startswith("best-")]
     assert ckpt_lib.restore_checkpoint(str(out / "best_model"))["epoch"] == \
         int(next(p for p in os.listdir(out) if p.startswith("best-"))[5:8])
+
+
+def _tiny_ast(factory):
+    """``ast_vit_base`` at a test width: the AST flavour, 192 x 2 blocks."""
+    import dataclasses
+
+    def tiny(**kw):
+        return dataclasses.replace(factory(**kw), embed_dim=192, depth=2,
+                                   num_heads=3)
+    return tiny
+
+
+def test_finetune_cli_ast_model_matches_jax_cli(corpus, tmp_path, monkeypatch):
+    """``--model ast_vit_base`` (the factory cut to 192 x 2 blocks in both
+    packages) through the port's CLI and the JAX CLI for one epoch, f32,
+    from the JAX run's initial weights and an AST AudioSet-layout .pth
+    whose 4-class mlp_head both keep: train_loss, test_acc1 and test_loss
+    within rtol 1e-4.  The loader's (B, 1, T, F) batches go to the model
+    as they come, as the JAX CLI feeds them."""
+    from tests.test_reference_layout import _fake_ast_timm_state_dict
+    from tpat_tpu import config as jcfg
+    from tpat_tpu.cli import finetune as jft
+    from tpat_tpu_torch import config as cfg_lib
+    from tpat_tpu_torch.utils.weights import state_dict_from_jax
+
+    monkeypatch.setattr(jcfg, "ast_vit_base", _tiny_ast(jcfg.ast_vit_base))
+    monkeypatch.setattr(cfg_lib, "ast_vit_base", _tiny_ast(cfg_lib.ast_vit_base))
+    sd = _fake_ast_timm_state_dict(np.random.default_rng(5), depth=2, d=192, nc=4)
+    pth = tmp_path / "ast.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    flags = ["--model", "ast_vit_base", "--drop_loc", "(1,)", "--epochs", "1",
+             "--compute_dtype", "float32", "--drop_path", "0.0", "--freqm", "4",
+             "--timem", "8",
+             "--audioset_pretrained_model_path", str(pth), "--blr", "5e-3"]
+    loaded = []
+    real_load = jft.load_params
+
+    def load_params(args, model, model_cfg):
+        params = real_load(args, model, model_cfg)
+        loaded.append(params)
+        return params
+
+    monkeypatch.setattr(jft, "load_params", load_params)
+    jout = tmp_path / "jax"
+    jft.main(jft.get_args_parser().parse_args(_argv(corpus, jout, *flags)))
+    real_init = ft.initial_state_dict
+    port_init = {}
+
+    def initial_state_dict(args, model_cfg):
+        port_init.update(real_init(args, model_cfg))
+        return state_dict_from_jax(loaded[0], "ast")
+
+    monkeypatch.setattr(ft, "initial_state_dict", initial_state_dict)
+    out = tmp_path / "port"
+    _run(_argv(corpus, out, *flags))
+    # the port's own import took the same checkpoint entries
+    for k in ("cls_token", "dist_token", "norm.weight", "mlp_head.1.weight"):
+        src = sd["module." + ("v." if not k.startswith("mlp_head") else "") + k]
+        assert torch.equal(port_init[k], torch.from_numpy(src)), k
+    (g,), (w,) = _logs(out), _logs(jout)
+    assert g["train_phase"] == w["train_phase"] == "dense"
+    for key in ("train_loss", "test_acc1", "test_loss"):
+        np.testing.assert_allclose(g[key], w[key], rtol=CLI_RTOL, err_msg=key)
+
+
+@pytest.mark.parametrize("ablation", [
+    ["--custom_rank", "mean"],
+    ["--base_keep_rate", "1.0", "--drop_token_blk_idx", "1",
+     "--retain_min", "-0.2", "--retain_max", "0.6"],
+])
+def test_eval_ablations_match_jax_cli(corpus, tmp_path, ablation, monkeypatch):
+    """--eval of a finetuned reference .pth with the custom-rank ablation
+    and with the intensity band (after block 1, at keep 1.0) through both
+    CLIs: the same acc1, and test loss within rtol 1e-4."""
+    from tpat_tpu.cli import finetune as jft
+
+    cfg = audiomae_vit_tiny(compute_dtype="float32", target_length=128,
+                            num_classes=4, drop_loc=(1, 3), base_keep_rate=0.6)
+    rng = np.random.default_rng(8)
+    sd = {k: torch.from_numpy((rng.normal(size=tuple(v.shape))
+                               * (1.0 if "qkv" in k else 0.05)).astype(np.float32))
+          for k, v in AudioViT(cfg).state_dict().items()}
+    pth = tmp_path / "finetuned.pth"
+    torch.save({"model": sd}, pth)
+    argv = _argv(corpus, tmp_path / "o", "--epochs", "1", "--eval",
+                 "--compute_dtype", "float32", "--finetuned_model_path", str(pth),
+                 *ablation)
+    got = _run(argv)
+    stats = {}
+    real_run_eval = jft.run_eval
+    monkeypatch.setattr(jft, "run_eval", lambda *a, **kw: stats.update(
+        real_run_eval(*a, **kw)))
+    jft.main(jft.get_args_parser().parse_args(argv))
+    assert 0.0 < got["acc1"] and got["acc1"] == stats["acc1"]
+    np.testing.assert_allclose(got["loss"], stats["loss"], rtol=CLI_RTOL)

@@ -134,8 +134,8 @@ def test_unported_features_refuse():
     cfg = _cfg()
     model = AudioViT(cfg).eval()
     x = torch.zeros(1, 1, 128, 128)
-    with pytest.raises(NotImplementedError):
-        model(x, custom_rank="mean")
+    with pytest.raises(NotImplementedError, match="remat"):
+        AudioViT(dataclasses.replace(cfg, remat=True))
     # 2D masking and drop-path are ported; in training they draw from an
     # explicit generator and refuse to run without one
     with pytest.raises(ValueError, match="2D masking"):
@@ -144,10 +144,6 @@ def test_unported_features_refuse():
         AudioViT(dataclasses.replace(cfg, drop_path_rate=0.1))(x)
     with pytest.raises(NotImplementedError, match="dropout"):
         AudioViT(dataclasses.replace(cfg, drop_rate=0.1))(x)
-    from tpat_tpu.config import ast_vit_base
-
-    with pytest.raises(NotImplementedError, match="AST"):
-        AudioViT(ast_vit_base(target_length=32, num_classes=2))
     with pytest.raises(ValueError, match="keep_rates"):
         model(x, (1.0,))
 

@@ -336,8 +336,8 @@ def test_engine_refuses_what_is_not_ported():
         train.TrainModule(cfg, _tc(anneal_mode="linear"), "ce", 2, device="cpu")
     with pytest.raises(ValueError, match="drop_loc"):
         train.TrainModule(cfg, _tc(drop_loc=(2,)), "ce", 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="AST"):
-        train.TrainModule(cfg, _tc(optimizer="ast_adam"), "ce", 2,
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        train.TrainModule(cfg, _tc(optimizer="sgd"), "ce", 2,
                           device="cpu").init()
 
 

@@ -2,6 +2,9 @@
 tpat_tpu_torch.cli.<name>``)."""
 
 import argparse
+import os
+
+import torch
 
 
 def str2bool(v):
@@ -15,3 +18,20 @@ def str2bool(v):
     if s in ("no", "false", "f", "n", "0"):
         return False
     raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
+
+
+def world_size() -> int:
+    """The process count the launcher's environment states."""
+    return max(int(os.environ.get(k, "1")) for k in ("WORLD_SIZE", "NUM_PROCESSES"))
+
+
+def card_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises, so a
+    CLI never carries on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the CLI runs on the card "
+            "(main(args, device='cpu') runs it on the CPU)"
+        )
+    return device

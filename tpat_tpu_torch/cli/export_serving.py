@@ -1,10 +1,13 @@
 """Export a trained model as a serving artifact for the port.
 
 Same flags as ``tpat_tpu/cli/export_serving.py``.  Reads a reference-layout
-``.pth`` (loaded strict: a finetuned checkpoint carries the model's own
-geometry, so no surgery) and writes ``params.npz`` + ``meta.json``
-(``utils/serving.py``), which ``utils.serving.load_forward`` serves on the
-GPU with bucketed dispatch.
+``.pth`` (an AudioMAE one loaded strict: a finetuned checkpoint carries the
+model's own geometry, so no surgery; an AST one, ``module.v.*`` and
+``module.mlp_head.*``, through the AST importer over a fresh model) and
+writes ``params.npz`` + ``meta.json`` (``utils/serving.py``), which
+``utils.serving.load_forward`` serves on the GPU with bucketed dispatch.
+The input is (n, 1, target_length, mel bins) for AudioMAE and AST's
+(n, 1, mel bins, target_length) for an ``ast_*`` model.
 
 Example:
     python -m tpat_tpu_torch.cli.export_serving \\
@@ -80,6 +83,7 @@ def main(args):
     from tpat_tpu_torch import config as cfg_lib
     from tpat_tpu_torch.models.vit import AudioViT
     from tpat_tpu_torch.utils import serving
+    from tpat_tpu_torch.utils import torch_import as ti
     from tpat_tpu_torch.utils.weights import load_pth
 
     preset = cfg_lib.DATASET_PRESETS.get(args.dataset)
@@ -95,9 +99,18 @@ def main(args):
         compute_dtype=args.compute_dtype,
     )
     model = AudioViT(cfg)
-    model.load_state_dict(load_pth(path), strict=True)
+    sd = load_pth(path)
+    ast_family = cfg.pos_embed_mode != "pre_cls"
+    if ast_family and any(k.startswith("v.") for k in sd):
+        ti.overlay_state_dict(model, ti.ast_state_dict_for(sd, cfg))
+    else:
+        model.load_state_dict(sd, strict=True)
 
-    shape = (batches[0], 1, cfg.target_length, cfg.num_mel_bins)
+    # AudioMAE takes (B, 1, T, F), AST (B, 1, F, T) (ast_models.py:434-436)
+    if ast_family:
+        shape = (batches[0], 1, cfg.num_mel_bins, cfg.target_length)
+    else:
+        shape = (batches[0], 1, cfg.target_length, cfg.num_mel_bins)
     out = serving.export_forward(
         model, shape, args.out_dir,
         batch_sizes=batches if len(batches) > 1 else None,

@@ -26,13 +26,19 @@ per epoch: ``train_loss``, ``train_grad_norm``, ``train_phase``,
 ``--save_every_epochs``, ``last_checkpoint``; ``--result_path`` gets the
 best score.
 
+``--model ast_vit_base`` takes AST checkpoints through the AST importer
+and is fed the loader's (B, 1, T, F) batches as they come, as the JAX CLI
+feeds it (``cli/run_ast.py`` is the AST CLI with AST's orientation).
+``--custom_rank`` reaches the static train steps and every single-label
+eval; ``--drop_token_blk_idx`` with ``--retain_min``/``--retain_max`` runs
+the intensity-band ablation in ``--eval`` (at keep 1.0).
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, each naming its ROADMAP item: ``--model ast_vit_base``
-(A5), ``--custom_rank`` and ``--drop_token_blk_idx`` (A6),
-``--flag_extract_features`` (A7, the feature writer), ``--device_frontend``
-(A8), ``--device_dataset true`` (A10; 'auto' means the host loader), and
-``--model_axis`` > 1 or more than one process (A11).
+raises.  Refused, each naming its ROADMAP item: ``--flag_extract_features``
+(A7, the feature writer), ``--device_frontend`` (A8), ``--device_dataset
+true`` (A10; 'auto' means the host loader), and ``--model_axis`` > 1 or
+more than one process (A11).
 """
 
 from __future__ import annotations
@@ -42,7 +48,6 @@ import ast
 import dataclasses
 import json
 import math
-import os
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 
 from tpat_tpu_torch import config as cfg_lib
-from tpat_tpu_torch.cli import str2bool
+from tpat_tpu_torch.cli import card_device, str2bool, world_size
 from tpat_tpu_torch.data.datasets import AudiosetDataset, VoxCeleb1Dataset
 from tpat_tpu_torch.data.loader import DataLoader
 from tpat_tpu_torch.data.sampler import EpochShardSampler
@@ -186,41 +191,23 @@ def args_checker(args):
         assert args.mask_2d, "mask_t_prob > 0 requires --mask_2d True"
 
 
-def _world_size() -> int:
-    return max(int(os.environ.get(k, "1")) for k in ("WORLD_SIZE", "NUM_PROCESSES"))
-
-
 def refuse_unported(args):
     """Raise for a flag whose feature the port does not have yet, naming the
     ROADMAP item that brings it."""
     refused = [
-        (args.model == "ast_vit_base", "--model ast_vit_base", "A5"),
-        (args.custom_rank is not None, "--custom_rank", "A6"),
-        (args.drop_token_blk_idx is not None,
-         "--drop_token_blk_idx (the intensity-band ablation)", "A6"),
         (args.flag_extract_features,
          "--flag_extract_features (the FeatureWriter)", "A7"),
         (args.device_frontend, "--device_frontend", "A8"),
         (args.device_dataset == "true",
          "--device_dataset true (the device dataset cache)", "A10"),
         (args.model_axis > 1, "--model_axis > 1 (tensor parallelism)", "A11"),
-        (_world_size() > 1, "more than one process (data parallelism)", "A11"),
+        (world_size() > 1, "more than one process (data parallelism)", "A11"),
     ]
     for hit, what, item in refused:
         if hit:
             raise NotImplementedError(
                 f"{what} is not ported to tpat_tpu_torch yet: ROADMAP {item}"
             )
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the finetune CLI runs on the card "
-            "(main(args, device='cpu') runs it on the CPU)"
-        )
-    return device
 
 
 def build_everything(args, device):
@@ -301,7 +288,7 @@ def build_everything(args, device):
     module = TrainModule(
         model_cfg, train_cfg, data_cfg.loss_type,
         iters_per_epoch=len(loader_train) if loader_train else 1,
-        device=device,
+        device=device, custom_rank=args.custom_rank,
     )
     return model_cfg, data_cfg, module, loader_train, loader_val
 
@@ -309,12 +296,15 @@ def build_everything(args, device):
 def _read_finetuned(path: str, model_cfg) -> Dict[str, torch.Tensor]:
     """The model state dict of ``--finetuned_model_path``: the port's own
     checkpoint (``utils/checkpoint.py``, loaded strict), or a reference
-    ``.pth`` at the model's geometry (the crop is a no-op, the row check
-    still holds it to the model's shape)."""
+    ``.pth`` at the model's geometry (an AST one through the AST importer;
+    an AudioMAE one's crop is a no-op, the row check still holds it to the
+    model's shape)."""
     ckpt_lib.refuse_orbax(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if ckpt_lib.is_payload(obj):
         return obj["model"]
+    if model_cfg.num_extra_tokens == 2:
+        return ti.ast_state_dict_for(state_dict_of(obj), model_cfg)
     return ti.audiomae_state_dict_for(
         state_dict_of(obj), model_cfg,
         ckpt_grid=(model_cfg.grid_f, model_cfg.grid_t),
@@ -326,14 +316,19 @@ def initial_state_dict(args, model_cfg) -> Dict[str, torch.Tensor]:
     initialised from ``--seed``: the pretrained trunk overlaid, the head
     weight kept fresh (the reference re-initialises it with
     trunc_normal(2e-5) after the load, main_finetune.py:424), then a
-    finetuned checkpoint over that."""
+    finetuned checkpoint over that.  An AST model takes an AST checkpoint
+    through ``ast_state_dict_for``, its mlp_head kept where the class count
+    matches (``tpat_tpu/cli/finetune.py:383-386``)."""
     model = AudioViT(model_cfg, generator=torch.Generator().manual_seed(args.seed))
     if args.audioset_pretrained_model_path:
         sd = load_pth(args.audioset_pretrained_model_path)
-        imported = ti.audiomae_state_dict_for(
-            sd, model_cfg, ckpt_grid=ti.checkpoint_grid(sd, model_cfg)
-        )
-        imported.pop("head.weight", None)
+        if model_cfg.num_extra_tokens == 2:
+            imported = ti.ast_state_dict_for(sd, model_cfg)
+        else:
+            imported = ti.audiomae_state_dict_for(
+                sd, model_cfg, ckpt_grid=ti.checkpoint_grid(sd, model_cfg)
+            )
+            imported.pop("head.weight", None)
         ti.overlay_state_dict(model, imported)
         print(f"loaded pretrained checkpoint: {args.audioset_pretrained_model_path}")
     if args.finetuned_model_path:
@@ -343,19 +338,29 @@ def initial_state_dict(args, model_cfg) -> Dict[str, torch.Tensor]:
     return model.state_dict()
 
 
-def _eval_once(args, model, loader_val, device) -> Dict[str, float]:
+def _eval_once(args, model, loader_val, device,
+               intensity_band=None) -> Dict[str, float]:
+    """One eval pass; like the reference, which sets use_custom_rank
+    model-wide (main_finetune.py:448-450), the custom rank applies to every
+    single-label eval."""
     batches = ((x, y) for x, y, _ in loader_val)
     if args.dataset == "audioset":
         return eval_lib.evaluate_multilabel(
             model, batches, args.batch_size, device
         )
     return eval_lib.evaluate_classification(
-        model, batches, args.batch_size, device
+        model, batches, args.batch_size, device,
+        custom_rank=args.custom_rank, intensity_band=intensity_band,
     )
 
 
 def run_eval(args, model, loader_val, device) -> Dict[str, float]:
-    stats = _eval_once(args, model, loader_val, device)
+    band = None
+    if args.drop_token_blk_idx is not None:
+        # the reference asserts eval at keep 1.0 (main_finetune.py:336)
+        assert args.base_keep_rate == 1.0, "band ablation needs keep 1.0"
+        band = (args.retain_min, args.retain_max, args.drop_token_blk_idx)
+    stats = _eval_once(args, model, loader_val, device, intensity_band=band)
     metric = "mAP" if args.dataset == "audioset" else "acc1"
     print(f"{metric}: {stats[metric]:.4f}")
     if args.result_path:
@@ -397,7 +402,7 @@ def main(args, device="cuda") -> Optional[Dict]:
     epoch."""
     args_checker(args)
     refuse_unported(args)
-    device = _device(device)
+    device = card_device(device)
     np.random.seed(args.seed)
 
     model_cfg, data_cfg, module, loader_train, loader_val = build_everything(

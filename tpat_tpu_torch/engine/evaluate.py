@@ -9,10 +9,14 @@ to its compiled shape; the port needs no fixed shape, but keeps the
 padding so the forward sees the same batches.  Logits are fetched one
 batch behind, so the device computes batch b while the host collects b-1.
 
-Not ported: the multi-process gather (``allgather_rows``, ROADMAP A11),
-``custom_rank`` and the intensity band (A6), the device frontend's
-``preprocess`` (A8).  The feature-writer hook is a callback; the
-``FeatureWriter`` itself waits for A7.
+The ablations run as in JAX: ``custom_rank`` through the static forward;
+the intensity band through ``forward_masked`` with host-double kept-count
+tables, which returns each sample's kept count, and a sample the band
+emptied is left out of the metrics.
+
+Not ported: the multi-process gather (``allgather_rows``, ROADMAP A11) and
+the device frontend's ``preprocess`` (A8).  The feature-writer hook is a
+callback; the ``FeatureWriter`` itself waits for A7.
 """
 
 from __future__ import annotations
@@ -23,15 +27,11 @@ import numpy as np
 import torch
 
 from tpat_tpu_torch.engine import metrics as metrics_lib
+from tpat_tpu_torch.engine import schedules
 from tpat_tpu_torch.models.vit import AudioViT
 
 
-def _refuse_unported(custom_rank=None, intensity_band=None, preprocess=None,
-                     allgather=False):
-    if custom_rank is not None or intensity_band is not None:
-        raise NotImplementedError(
-            "custom_rank and the intensity band are not ported yet: ROADMAP A6"
-        )
+def _refuse_unported(preprocess=None, allgather=False):
     if preprocess is not None:
         raise NotImplementedError(
             "the device frontend (preprocess) is not ported yet: ROADMAP A8"
@@ -51,13 +51,34 @@ def make_eval_step(
     preprocess=None,
 ) -> Callable[[torch.Tensor], object]:
     """The eval forward: logits, or (logits, features) with
-    ``extract_features``."""
-    _refuse_unported(custom_rank, intensity_band, preprocess)
+    ``extract_features``, or (logits, kept counts) with ``intensity_band``
+    = (retain_min, retain_max, block), which combines with neither
+    features nor ``custom_rank`` (``evaluate.py:72-110``)."""
+    _refuse_unported(preprocess)
+    if intensity_band is not None:
+        if extract_features or custom_rank is not None:
+            raise ValueError(
+                "intensity_band cannot be combined with feature "
+                "extraction or custom_rank"
+            )
+        cfg = model.cfg
+        tables = torch.from_numpy(schedules.kept_count_tables(
+            cfg.keep_rates, cfg.drop_loc, cfg.num_patches))
+
+        def band_step(x: torch.Tensor):
+            model.eval()
+            with torch.no_grad():
+                return model.forward_masked(
+                    x, cfg.keep_rates, num_left_tables=tables.to(x.device),
+                    intensity_band=tuple(intensity_band))
+
+        return band_step
 
     def step(x: torch.Tensor):
         model.eval()
         with torch.no_grad():
-            return model(x, extract_features=extract_features)
+            return model(x, extract_features=extract_features,
+                         custom_rank=custom_rank)
 
     return step
 
@@ -74,13 +95,22 @@ def _run_batches(
     device,
     feature_writer: Optional[Callable[[Dict, int], None]] = None,
     index_to_name: Optional[Dict[int, str]] = None,
+    band_mode: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, list]:
     """``batches`` yields (x, y) or (x, y, n_valid), numpy or tensors; rows
-    past n_valid are padding.  Returns (logits, targets, rows per batch)."""
+    past n_valid are padding.  In ``band_mode`` the step returns (logits,
+    kept counts) and the samples with nothing kept are skipped.  Returns
+    (logits, targets, rows per batch)."""
     all_logits, all_targets = [], []
     pending = None
 
     def _consume(out, n, y, bidx):
+        if band_mode:
+            logits, kept = out
+            keep = _host(kept[:n]) > 0
+            all_logits.append(_host(logits[:n])[keep])
+            all_targets.append(np.asarray(y)[:n][keep])
+            return
         if feature_writer is not None:
             logits, features = out
             features = {k: _host(v[:n]) for k, v in features.items()}
@@ -127,11 +157,14 @@ def evaluate_classification(
 ) -> Dict[str, float]:
     """Single-label eval: acc1, acc5 and the CE loss on argmax targets.
     ``device`` defaults to the model's."""
-    _refuse_unported(custom_rank, intensity_band, preprocess, allgather)
+    _refuse_unported(preprocess, allgather)
     device = device or next(model.parameters()).device
-    step = make_eval_step(model, extract_features=feature_writer is not None)
+    step = make_eval_step(model, extract_features=feature_writer is not None,
+                          custom_rank=custom_rank,
+                          intensity_band=intensity_band)
     logits, targets, sizes = _run_batches(
-        step, batches, batch_size, device, feature_writer, index_to_name
+        step, batches, batch_size, device, feature_writer, index_to_name,
+        band_mode=intensity_band is not None,
     )
     tgt_idx = np.argmax(targets, axis=1)
     acc1, acc5 = metrics_lib.topk_accuracy(logits, tgt_idx, ks=(1, 5))
@@ -159,12 +192,19 @@ def evaluate_multilabel(
     feature_writer=None,
     preprocess=None,
     allgather: bool = False,
+    custom_rank=None,
+    intensity_band=None,
 ) -> Dict[str, float]:
-    """Multilabel eval: the mean over classes of the average precision."""
-    _refuse_unported(preprocess=preprocess, allgather=allgather)
+    """Multilabel eval: the mean over classes of the average precision.
+    The JAX function takes no ablation; ``cli/run_ast.py --eval`` passes
+    both, so here they run as in ``evaluate_classification``."""
+    _refuse_unported(preprocess, allgather)
     device = device or next(model.parameters()).device
-    step = make_eval_step(model, extract_features=feature_writer is not None)
+    step = make_eval_step(model, extract_features=feature_writer is not None,
+                          custom_rank=custom_rank,
+                          intensity_band=intensity_band)
     logits, targets, _sizes = _run_batches(
-        step, batches, batch_size, device, feature_writer
+        step, batches, batch_size, device, feature_writer,
+        band_mode=intensity_band is not None,
     )
     return {"mAP": metrics_lib.mean_average_precision(logits, targets)}

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpat_tpu_torch.config import compose_kept_counts
@@ -82,6 +83,21 @@ def masked_kept_counts(
     rates outside ``drop_loc`` neutralised."""
     effective = tuple(r if i in drop_loc else 1.0 for i, r in enumerate(rates))
     return compose_kept_counts(effective, num_patches)
+
+
+def kept_count_tables(
+    rates: Tuple[float, ...], drop_loc: Tuple[int, ...], num_patches: int
+) -> np.ndarray:
+    """(depth, num_patches + 1) int64: ``table[i][n] = ceil(rates[i] * n)``
+    in host double (the reference's ``math.ceil``) at the drop blocks, the
+    identity elsewhere.  The intensity band makes the kept counts per
+    sample and data-dependent, so the masked forward maps each runtime
+    count through its block's row instead of an f32 ceil."""
+    tbl = np.tile(np.arange(num_patches + 1, dtype=np.int64), (len(rates), 1))
+    for i, r in enumerate(rates):
+        if i in drop_loc:
+            tbl[i] = [math.ceil(float(r) * n) for n in range(num_patches + 1)]
+    return tbl
 
 
 def schedule_phase(

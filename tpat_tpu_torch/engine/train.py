@@ -1,7 +1,8 @@
 """Training engine of the port (``tpat_tpu/engine/train.py``), run eagerly.
 
-- per-update warmup + cosine LR through AdamW with layer-wise decay
-  (``engine/optimizer.py``);
+- per-update warmup + cosine LR through AdamW with layer-wise decay, or
+  the AST recipe (``optimizer='ast_adam'``: Adam with coupled L2 and the
+  replayed warmup/MultiStepLR table), ``engine/optimizer.py``;
 - keep-rate phases: dense (with 2D time/frequency masking) -> anneal
   ('hybrid' by default, or 'bucketed' / 'masked') -> static pruned;
 - the soft-target CE, BCE and hard CE losses;
@@ -12,9 +13,10 @@
   ``FloatingPointError``.
 
 Drop-path and 2D masking draw from the state's ``torch.Generator`` on the
-model's device.  The JAX package's compiled-step memo, its mesh and tensor
-parallelism, ``custom_rank`` and the device frontend (``preprocess``) have
-no counterpart here.
+model's device.  ``custom_rank`` (the custom-rank ablation) reaches the
+static forwards; an anneal epoch refuses it, as in JAX.  The JAX package's
+compiled-step memo, its mesh and tensor parallelism and the device frontend
+(``preprocess``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ class TrainModule:
     loss_type: str
     iters_per_epoch: int
     device: Union[str, torch.device] = "cuda"
+    # the custom-rank ablation ('mean' or 'std'): static phases only
+    custom_rank: Optional[str] = None
 
     def __post_init__(self):
         tc = self.train_cfg
@@ -101,10 +105,15 @@ class TrainModule:
             raise ValueError(f"unknown anneal_mode {tc.anneal_mode!r}")
         self.loss_fn = LOSS_FNS[self.loss_type]
         self.accum = max(tc.accum_iter, 1)
-        eff_batch = tc.batch_size * tc.accum_iter * tc.num_hosts
-        self.lr_fn = opt_lib.make_lr_fn(
-            tc, max(self.iters_per_epoch // tc.accum_iter, 1), eff_batch
-        )
+        if tc.optimizer == "ast_adam":
+            self.lr_fn = opt_lib.make_ast_lr_fn(
+                tc, max(self.iters_per_epoch, 1), accum=tc.accum_iter
+            )
+        else:
+            eff_batch = tc.batch_size * tc.accum_iter * tc.num_hosts
+            self.lr_fn = opt_lib.make_lr_fn(
+                tc, max(self.iters_per_epoch // tc.accum_iter, 1), eff_batch
+            )
         self.device = torch.device(self.device)
 
     # -- state ----------------------------------------------------------
@@ -143,6 +152,8 @@ class TrainModule:
     ) -> torch.Tensor:
         model, gen = state.model, state.generator
         if phase == "anneal":
+            if self.custom_rank is not None:
+                raise AssertionError("custom-rank ablation is static-phase only")
             if static_rates is not None:
                 return model.forward_hybrid(
                     x, keep_rates, num_left=num_left, bucket_rates=static_rates,
@@ -156,7 +167,8 @@ class TrainModule:
         else:
             kr = (1.0,) * self.model_cfg.depth if phase == "dense" else None
         return model(
-            x, kr, mask_t_prob=mask_prob, mask_f_prob=mask_prob, generator=gen
+            x, kr, mask_t_prob=mask_prob, mask_f_prob=mask_prob,
+            custom_rank=self.custom_rank, generator=gen,
         )
 
     def loss_and_grads(
@@ -245,6 +257,10 @@ class TrainModule:
         )
         # 2D masking regularises only before the shrink
         mask_prob = cfg.mask_t_prob if phase == "dense" else 0.0
+        if (phase == "anneal" and cfg.anneal_mode != "masked"
+                and self.custom_rank is not None):
+            # the masked mode refuses it in _forward, as JAX's does
+            raise AssertionError("custom-rank ablation is static-phase only")
         all_ones = (1.0,) * depth
         it = epoch * self.iters_per_epoch
         acc = self._zero_acc()

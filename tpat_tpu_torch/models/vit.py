@@ -12,8 +12,10 @@ widths, where the mask is a uniform prefix the prefix kernel consumes.
 
 Module names equal the reference ``.pth`` keys (``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,
-mlp.fc1,mlp.fc2}``, ``fc_norm``, ``head``), so a reference state dict loads
-with ``strict=True``.
+mlp.fc1,mlp.fc2}``, then ``fc_norm`` and ``head`` for AudioMAE, or
+``dist_token``, ``norm`` and ``mlp_head.{0,1}`` for AST, whose reference
+``.pth`` holds the same keys under ``module.v.`` and ``module.``), so a
+reference state dict loads with ``strict=True``.
 
 Precision follows the JAX package: parameters are f32 and are cast to the
 compute dtype at use (flax's ``Dense(dtype=...)``), LayerNorm statistics run
@@ -25,11 +27,15 @@ kernels); ``fc_norm`` stays the plain ``LayerNorm``, as in the JAX model.
 Training randomness (drop-path, 2D time/frequency masking) draws from the
 ``torch.Generator`` the caller passes, never from the global RNG.
 
-Ported: the AudioMAE flavour (1 extra token, gap_fcnorm pooling), with
-drop-path and 2D masking in training.  Not yet ported, and refused with an
-error: the AST flavour (cls_dist pooling), ``custom_rank``, dropout
-(``drop_rate`` > 0 in training; every reference config has 0), ``remat``,
-and ``forward_masked``'s ``num_left_tables`` and intensity band.
+Ported: both flavours, AudioMAE (1 extra token, patch-mean importance,
+gap_fcnorm pooling) and AST (CLS and distillation tokens, CLS-row
+importance, a final norm, cls_dist pooling), with drop-path and 2D masking
+(AudioMAE only, as in JAX) in training; the custom-rank ablation
+(``custom_rank``: per-patch mel mean or std in place of the attention
+importance) and ``forward_masked``'s intensity band with its host-double
+kept-count tables.  Not yet ported, and refused with an error: dropout
+(``drop_rate`` > 0 in training; every reference config has 0) and
+``remat``.
 """
 
 from __future__ import annotations
@@ -252,24 +258,32 @@ class Block(nn.Module):
     def forward(
         self, x: torch.Tensor, keep_rate: float, extract_features: bool,
         generator: Optional[torch.Generator] = None,
+        custom_rank: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Static-shape path.  Returns (x, aux); aux may hold 'scores' and
-        'topk_idx'."""
+        """Static-shape path (``vit.py:311-348``).  Returns (x, aux); aux may
+        hold 'scores' and 'topk_idx'.  ``custom_rank`` ((B, P') per-patch
+        values) replaces the attention importance: the attention then runs
+        without scores unless features are extracted."""
         e = self.num_extra_tokens
         p_in = x.shape[1] - e
         prune = keep_rate < 1.0
-        attn_out, scores = self.attn(
-            self.norm1(x), need_scores=prune or extract_features
-        )
+        need_scores = (prune and custom_rank is None) or extract_features
+        attn_out, scores = self.attn(self.norm1(x), need_scores=need_scores)
         x = self._residual(x, attn_out, generator)
         aux: Dict[str, torch.Tensor] = {}
         if extract_features and scores is not None:
             aux["scores"] = scores
         if prune:
-            idx = pruning.topk_select(
-                scores.detach(), pruning.num_left_tokens(keep_rate, p_in)
-            )
-            x = pruning.gather_tokens(x, idx, e)
+            k = pruning.num_left_tokens(keep_rate, p_in)
+            if custom_rank is None:
+                idx = pruning.topk_select(scores.detach(), k)
+                x = pruning.gather_tokens(x, idx, e)
+            else:
+                # the reference's quirk (models_vit.py:215-220), kept: the
+                # gather indexes the FULL sequence, extras included, with
+                # patch-space indices
+                idx = pruning.topk_select(custom_rank, k)
+                x = pruning.take_rows(x, idx)
             aux["topk_idx"] = idx
         return self._residual(x, self.mlp(self.norm2(x)), generator), aux
 
@@ -280,6 +294,7 @@ class Block(nn.Module):
         *,
         keep_rate: Optional[float],
         num_left: Optional[Union[int, torch.Tensor]] = None,
+        num_left_table: Optional[torch.Tensor] = None,
         bucket_k: Optional[int] = None,
         mask_is_full: bool = False,
         prefix_len: Optional[int] = None,
@@ -287,8 +302,11 @@ class Block(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Masked (anneal) path (``vit.py:350-433``).  ``keep_rate`` is None
         for a block that does not prune.  ``num_left`` is the exact kept
-        count from the host (``engine.schedules.masked_kept_counts``); None
-        takes the f32 ceil of ``pruning.masked_num_left`` per sample.
+        count from the host (``engine.schedules.masked_kept_counts``);
+        ``num_left_table`` ((P + 1,) ints, ``engine.schedules.
+        kept_count_tables``) instead maps each sample's kept count through
+        the host-double ceil; with neither, the f32 ceil of
+        ``pruning.masked_num_left`` per sample.
 
         ``bucket_k`` (hybrid anneal): after the block, gather the top
         ``bucket_k`` patch tokens by masked score (descending, ties to the
@@ -308,7 +326,9 @@ class Block(nn.Module):
         if keep_rate is not None:
             scores = scores.detach()
             if num_left is None:
-                num_left = pruning.masked_num_left(keep_rate, token_mask.sum(1))
+                kept = token_mask.sum(1)
+                num_left = (num_left_table[kept] if num_left_table is not None
+                            else pruning.masked_num_left(keep_rate, kept))
             if bucket_k is not None:
                 masked = scores.masked_fill(~token_mask, float("-inf"))
                 idx = pruning.topk_select(masked, bucket_k)
@@ -336,13 +356,28 @@ def xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor
 
 
 def _check_ported(cfg: ViTConfig):
-    if cfg.num_extra_tokens != 1 or cfg.pooling != "gap_fcnorm" or cfg.use_final_norm:
-        raise NotImplementedError(
-            "only the AudioMAE flavour (1 extra token, gap_fcnorm pooling, no "
-            "final norm) is ported; the AST flavour is not yet"
-        )
+    if cfg.num_extra_tokens not in (1, 2):
+        raise ValueError("num_extra_tokens must be 1 or 2")
+    if cfg.pooling not in ("gap_fcnorm", "cls_dist"):
+        raise ValueError(f"unknown pooling: {cfg.pooling}")
     if cfg.remat:
         raise NotImplementedError("remat (training) is not ported yet")
+
+
+def patch_stats(x: torch.Tensor, patch: int = 16, kind: str = "mean") -> torch.Tensor:
+    """Per-patch mean or std (ddof 1) of the input over its
+    ``patch`` x ``patch`` patches, in the row-major token order: the
+    custom-rank and intensity-band signal (``vit.py:464-476``).
+    x: (B, C, H, W) -> (B, (H / patch) * (W / patch))."""
+    b, c, hh, ww = x.shape
+    gh, gw = hh // patch, ww // patch
+    t = x.reshape(b, c, gh, patch, gw, patch).permute(0, 1, 3, 5, 2, 4)
+    t = t.reshape(b, c * patch * patch, gh * gw)
+    if kind == "mean":
+        return t.mean(dim=1)
+    if kind == "std":
+        return t.std(dim=1, correction=1)
+    raise ValueError(f"unknown patch stat: {kind}")
 
 
 def mask2d_noise(
@@ -375,16 +410,27 @@ class AudioViT(nn.Module):
         _check_ported(cfg)
         self.cfg = cfg
         d = cfg.embed_dim
+        dt, eps = compute_dtype(cfg), cfg.layer_norm_eps
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        if cfg.num_extra_tokens == 2:
+            self.dist_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.num_patches + cfg.num_extra_tokens, d),
             requires_grad=not cfg.frozen_pos_embed,
         )
         dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(Block(cfg, float(r)) for r in dpr)
-        self.fc_norm = LayerNorm(d, cfg.layer_norm_eps, compute_dtype(cfg))
-        self.head = nn.Linear(d, cfg.num_classes)
+        if cfg.use_final_norm:
+            self.norm = LayerNorm(d, eps, dt)
+        if cfg.pooling == "gap_fcnorm":
+            self.fc_norm = LayerNorm(d, eps, dt)
+            self.head = nn.Linear(d, cfg.num_classes)
+        else:
+            # AST's mlp_head (ast_models.py:290): LayerNorm + Linear in f32
+            self.mlp_head = nn.Sequential(
+                LayerNorm(d, eps, torch.float32), nn.Linear(d, cfg.num_classes)
+            )
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.reset_parameters(generator)
@@ -396,11 +442,14 @@ class AudioViT(nn.Module):
         """Initialise like the JAX package: the weight matrices and the
         patch conv by ``cfg.dense_init`` (trunc-normal(0.02, +-2 std), or
         xavier-uniform with the conv flattened, ``vit.py::_kinit`` and
-        ``_conv_flat_xavier``), trunc-normal(0.02) for the CLS token, zero
-        biases, unit LayerNorm scales, trunc-normal(2e-5) for the head under
-        either, and the fixed 2D sin-cos table for a frozen pos embed.
-        (flax's default conv init is lecun-normal; weights cross between the
-        packages through the state dict, never through the initialiser.)"""
+        ``_conv_flat_xavier``), trunc-normal(0.02) for the CLS and
+        distillation tokens, zero biases, unit LayerNorm scales,
+        trunc-normal(2e-5) for the AudioMAE head under either, torch's
+        default Linear init for AST's mlp_head (weight and bias U(+-1 /
+        sqrt(fan_in)), ``vit.py:540-555``), and the fixed 2D sin-cos table
+        for a frozen pos embed.  (flax's default conv init is lecun-normal;
+        weights cross between the packages through the state dict, never
+        through the initialiser.)"""
         cfg = self.cfg
 
         def trunc(t, std):
@@ -418,8 +467,16 @@ class AudioViT(nn.Module):
                     trunc(m.weight, 0.02)
                 if m.bias is not None:
                     m.bias.zero_()
-        trunc(self.head.weight, 2e-5)
+        if cfg.pooling == "gap_fcnorm":
+            trunc(self.head.weight, 2e-5)
+        else:
+            head = self.mlp_head[1]
+            bound = 1.0 / math.sqrt(head.in_features)
+            head.weight.uniform_(-bound, bound, generator=generator)
+            head.bias.uniform_(-bound, bound, generator=generator)
         trunc(self.cls_token, 0.02)
+        if cfg.num_extra_tokens == 2:
+            trunc(self.dist_token, 0.02)
         if cfg.frozen_pos_embed:
             grid = sincos_2d(cfg.embed_dim, (cfg.grid_t, cfg.grid_f))
             table = np.concatenate(
@@ -430,11 +487,17 @@ class AudioViT(nn.Module):
             trunc(self.pos_embed, 0.02)
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
-        """Patchify, prepend CLS, add the positional table (pos and CLS
-        cast to the token dtype, ``vit.py:563-601``)."""
+        """Patchify, prepend CLS (and AST's distillation token), add the
+        whole positional table (pos and tokens cast to the token dtype,
+        ``vit.py:563-601``; AudioMAE's 'pre_cls' order gives the same sum)."""
         tokens = self.patch_embed(x)
-        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
-        return torch.cat([cls, tokens], dim=1) + self.pos_embed.to(tokens.dtype)
+        extras = [self.cls_token]
+        if self.cfg.num_extra_tokens == 2:
+            extras.append(self.dist_token)
+        b = tokens.shape[0]
+        extras = [t.to(tokens.dtype).expand(b, -1, -1) for t in extras]
+        return (torch.cat([*extras, tokens], dim=1)
+                + self.pos_embed.to(tokens.dtype))
 
     def embed_masked2d(
         self,
@@ -449,6 +512,8 @@ class AudioViT(nn.Module):
         frequency columns with the smallest ``noise[1]``, tokens staying in
         that permuted order; the CLS token gets pos row 0."""
         cfg = self.cfg
+        if cfg.pos_embed_mode != "pre_cls":
+            raise ValueError("2D masking is AudioMAE-only")
         tokens = self.patch_embed(x)
         pos = self.pos_embed.to(tokens.dtype)
         tokens = tokens + pos[:, 1:]
@@ -472,10 +537,18 @@ class AudioViT(nn.Module):
     def pool_and_head(
         self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """Mean over patch tokens (f32 accumulation, result in the token
-        dtype; over kept tokens only, through ``masked_mean``, when
-        ``token_mask`` is given), fc_norm, f32 head (``vit.py:603-616``)."""
-        patches = x[:, self.cfg.num_extra_tokens:]
+        """The final norm where the flavour has one (in the compute dtype),
+        then ``vit.py:603-621``'s pooling.  gap_fcnorm: the mean over patch
+        tokens (f32 accumulation, result in the token dtype; over kept
+        tokens only, through ``masked_mean``, when ``token_mask`` is given),
+        fc_norm, f32 head.  cls_dist: (x[:, 0] + x[:, 1]) / 2 in the token
+        dtype, then cast to f32 for mlp_head's LayerNorm and Linear."""
+        cfg = self.cfg
+        if cfg.use_final_norm:
+            x = self.norm(x)
+        if cfg.pooling == "cls_dist":
+            return self.mlp_head(((x[:, 0] + x[:, 1]) / 2.0).float())
+        patches = x[:, cfg.num_extra_tokens:]
         if token_mask is not None:
             feat = pruning.masked_mean(patches, token_mask)
         else:
@@ -504,13 +577,15 @@ class AudioViT(nn.Module):
         keep_rates: per-block floats (len == depth); None uses the config's
         baked rates.  ``mask_t_prob``/``mask_f_prob`` > 0 embed through 2D
         masking, with noise drawn from ``generator``, which drop-path in
-        training draws from too.  Returns logits (B, num_classes) f32, or
-        (logits, features) when ``extract_features``: 'mel',
-        'block-{i}.attn_score' and 'block-{i}.topk_idx'.
+        training draws from too.  ``custom_rank`` ('mean' or 'std'): the
+        drop blocks keep the patches of largest ``patch_stats`` instead of
+        largest importance; ignored under 2D masking, whose permuted
+        tokens the full-grid ranks do not index (``vit.py:656-668``).
+        Returns logits (B, num_classes) f32, or (logits, features) when
+        ``extract_features``: 'mel', 'block-{i}.attn_score' and
+        'block-{i}.topk_idx'.
         """
         cfg = self.cfg
-        if custom_rank is not None:
-            raise NotImplementedError("custom_rank is not ported yet")
         self._check_training()
         if keep_rates is None:
             keep_rates = cfg.keep_rates
@@ -523,14 +598,21 @@ class AudioViT(nn.Module):
         features: Dict[str, torch.Tensor] = {}
         if extract_features:
             features["mel"] = x
-        if mask_t_prob > 0.0 or mask_f_prob > 0.0:
+        masked2d = mask_t_prob > 0.0 or mask_f_prob > 0.0
+        rank = None
+        if custom_rank is not None and not masked2d:
+            rank = patch_stats(x, cfg.patch_size, custom_rank)
+        if masked2d:
             gen = _need_generator(generator, "2D masking")
             noise = mask2d_noise(x.shape[0], cfg, gen, x.device)
             tokens = self.embed_masked2d(x, mask_t_prob, mask_f_prob, noise)
         else:
             tokens = self.embed(x)
         for i, blk in enumerate(self.blocks):
-            tokens, aux = blk(tokens, keep_rates[i], extract_features, generator)
+            tokens, aux = blk(tokens, keep_rates[i], extract_features, generator,
+                              custom_rank=rank)
+            if rank is not None and "topk_idx" in aux:
+                rank = pruning.gather_scores(rank, aux["topk_idx"])
             if extract_features:
                 if "scores" in aux:
                     features[f"block-{i}.attn_score"] = aux["scores"]
@@ -547,28 +629,57 @@ class AudioViT(nn.Module):
         keep_rates: Sequence[float],
         *,
         num_left: Optional[Sequence[int]] = None,
+        num_left_tables: Optional[torch.Tensor] = None,
+        intensity_band: Optional[Tuple[float, float, int]] = None,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+    ):
         """Full-width forward with per-block keep rates carried as a token
-        mask (``vit.py:742-833``, without the intensity band and
-        ``num_left_tables``).  ``num_left``: the exact per-block kept counts
-        from ``engine.schedules.masked_kept_counts``; None takes the f32 ceil
-        per sample.  Entries at blocks outside ``drop_loc`` are ignored."""
+        mask (``vit.py:742-833``).  ``num_left``: the exact per-block kept
+        counts from ``engine.schedules.masked_kept_counts``;
+        ``num_left_tables`` ((depth, P + 1) ints, ``engine.schedules.
+        kept_count_tables``): each drop block maps its runtime kept count
+        through its row instead; with neither, the f32 ceil per sample.
+        Entries at blocks outside ``drop_loc`` are ignored.
+
+        ``intensity_band`` = (retain_min, retain_max, block): after that
+        block only the patches whose input mean (``patch_stats``) lies in
+        the open interval stay in the mask, intersected with it in the
+        original grid's order (the reference indexes the pruned sequence
+        with grid indices, which fails once a drop block precedes the
+        band; where it runs the two agree).  Returns (logits, kept counts
+        per sample) with the band, else the logits."""
         cfg = self.cfg
+        if num_left is not None and intensity_band is not None:
+            raise ValueError("num_left and intensity_band are exclusive: the "
+                             "band makes the kept counts data-dependent")
         self._check_training()
+        band_mask, band_blk = None, -1
+        if intensity_band is not None:
+            lo, hi, band_blk = intensity_band
+            intensity = patch_stats(x, cfg.patch_size, "mean")
+            band_mask = (intensity > lo) & (intensity < hi)
         tokens = self.embed(x)
         token_mask = pruning.full_token_mask(x.shape[0], cfg.num_patches, x.device)
         first = min(cfg.drop_loc) if cfg.drop_loc else cfg.depth
+        if band_mask is not None:
+            first = min(first, band_blk)
         for i, blk in enumerate(self.blocks):
             drop = i in cfg.drop_loc
             tokens, token_mask = blk.masked_call(
                 tokens, token_mask,
                 keep_rate=float(keep_rates[i]) if drop else None,
                 num_left=num_left[i] if drop and num_left is not None else None,
+                num_left_table=(num_left_tables[i]
+                                if drop and num_left_tables is not None else None),
                 mask_is_full=i <= first,
                 generator=generator,
             )
-        return self.pool_and_head(tokens, token_mask)
+            if band_mask is not None and i == band_blk:
+                token_mask = token_mask & band_mask
+        logits = self.pool_and_head(tokens, token_mask)
+        if intensity_band is not None:
+            return logits, token_mask.sum(1)
+        return logits
 
     def forward_hybrid(
         self,

@@ -51,7 +51,8 @@ def export_forward(
 ) -> str:
     """Write ``model``'s parameters and the serving metadata to ``out_dir``.
 
-    input_shape: ``(batch, 1, target_length, num_mel_bins)``.  With
+    input_shape: ``(batch, 1, target_length, num_mel_bins)``, or AST's
+    ``(batch, 1, num_mel_bins, target_length)``.  With
     ``batch_sizes`` (e.g. ``(1, 8, 32, 128)``) the artifact is bucketed and
     the leading dim of ``input_shape`` is ignored; without, the batch size
     is fixed to ``input_shape[0]``.
@@ -93,8 +94,9 @@ def load_forward(
     device: str = "cuda",
 ) -> Tuple[Callable, dict]:
     """Load an artifact onto ``device``; returns ``(fn, meta)`` where
-    ``fn(x)`` maps a (n, 1, T, F) batch (numpy or tensor) to (n, classes)
-    f32 logits on ``device``."""
+    ``fn(x)`` maps a batch of the artifact's input shape ((n, 1, T, F), or
+    AST's (n, 1, F, T); numpy or tensor) to (n, classes) f32 logits on
+    ``device``."""
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)
     if cfg is None:

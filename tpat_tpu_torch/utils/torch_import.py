@@ -19,9 +19,20 @@ and applies the same surgery (``main_finetune.py:384-426``):
   (``strict=False``: missing keys keep their initialisation) and fails on
   any key the model does not have, as ``overlay_params`` does.
 
-The AST, DeiT and MAE importers (``ast_params_from_state_dict``,
-``deit_params_from_state_dict``, ``mae_params_from_state_dict``) wait for
-ROADMAP A5 and A9.
+The AST importers take the same path (``ast_models.py:273-381``):
+
+- ``ast_state_dict_for``, the counterpart of ``ast_params_from_state_dict``:
+  an AST ``.pth`` (``module.`` already stripped by ``state_dict_of``; the
+  trunk under ``v.``) -> the trunk, ``dist_token`` and ``norm`` included,
+  its pos_embed's (8, 64) time axis centre-cropped to the model's, a row
+  count that still does not match refused, and ``mlp_head.{0,1}`` kept only
+  when the class count matches;
+- ``deit_state_dict_for``, the counterpart of
+  ``deit_params_from_state_dict``: a timm DeiT-distilled state dict -> the
+  trunk with the RGB patch conv summed to one channel and the square pos
+  grid cut or stretched to the audio grid; both DeiT heads are dropped.
+
+The MAE importer (``mae_params_from_state_dict``) waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ _BLOCK_KEY = re.compile(
     r"blocks\.\d+\.(norm1|norm2|attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2)"
     r"\.(weight|bias)"
 )
+_AST_TRUNK = ("cls_token", "dist_token", "patch_embed.proj.weight",
+              "patch_embed.proj.bias", "norm.weight", "norm.bias")
 
 
 def _f32(t) -> torch.Tensor:
@@ -75,6 +88,63 @@ def audiomae_state_dict_for(
         out["head.weight"] = _f32(sd["head.weight"])
         if "head.bias" in sd:
             out["head.bias"] = _f32(sd["head.bias"])
+    return out
+
+
+def _ast_trunk(v: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: _f32(t) for k, t in v.items()
+            if k in _AST_TRUNK or _BLOCK_KEY.fullmatch(k)}
+
+
+def _ast_pos(pos: np.ndarray, cfg: ViTConfig, what: str) -> torch.Tensor:
+    if pos.shape[1] != cfg.num_patches + 2:
+        raise ValueError(
+            f"{what} pos_embed rows {pos.shape[1]} != {cfg.num_patches + 2}"
+        )
+    return torch.from_numpy(np.ascontiguousarray(pos))
+
+
+def ast_state_dict_for(
+    sd: Mapping[str, torch.Tensor], cfg: ViTConfig
+) -> Dict[str, torch.Tensor]:
+    """An AST ``.pth`` state dict (trunk under ``v.``, ``module.``
+    stripped) -> the state dict an AST ``AudioViT(cfg)`` takes with
+    ``overlay_state_dict`` (``ast_models.py:353-381``)."""
+    v = {k.removeprefix("v."): t for k, t in sd.items() if k.startswith("v.")}
+    out = _ast_trunk(v)
+    pos = _f32(v["pos_embed"]).numpy()
+    if pos.shape[1] - 2 != cfg.num_patches:
+        pos = pe.center_crop_time_ast_pos_embed(
+            pos, cfg.target_length // cfg.patch_size, num_extra_tokens=2
+        )
+    out["pos_embed"] = _ast_pos(pos, cfg, "AST")
+    if ("mlp_head.1.weight" in sd
+            and sd["mlp_head.1.weight"].shape[0] == cfg.num_classes):
+        for k in ("mlp_head.0.weight", "mlp_head.0.bias",
+                  "mlp_head.1.weight", "mlp_head.1.bias"):
+            out[k] = _f32(sd[k])
+    return out
+
+
+def deit_state_dict_for(
+    sd: Mapping[str, torch.Tensor], cfg: ViTConfig
+) -> Dict[str, torch.Tensor]:
+    """A timm ``vit_deit_base_distilled_patch16_384`` state dict -> the AST
+    trunk (``ast_models.py:273-325``): the RGB patch conv summed to one
+    channel, the square pos grid adapted by
+    ``pos_embed.deit_img2audio_pos_embed``, ``head``/``head_dist`` dropped
+    (AST always builds a fresh mlp_head)."""
+    v = {k.removeprefix("v."): t for k, t in sd.items()}
+    out = _ast_trunk(v)
+    w = out["patch_embed.proj.weight"]
+    if w.shape[1] != 1:
+        out["patch_embed.proj.weight"] = torch.from_numpy(
+            pe.sum_rgb_patch_embed(w.numpy()))
+    pos = pe.deit_img2audio_pos_embed(
+        _f32(v["pos_embed"]).numpy(), cfg.grid_f, cfg.grid_t,
+        num_extra_tokens=2,
+    )
+    out["pos_embed"] = _ast_pos(pos, cfg, "DeiT")
     return out
 
 

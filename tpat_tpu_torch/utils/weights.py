@@ -1,7 +1,9 @@
 """Weights across the two packages and the reference ``.pth`` layout.
 
 - ``state_dict_from_jax``: a flax AudioViT param tree (numpy leaves) -> the
-  AudioMAE state dict;
+  state dict of the port's model, AudioMAE or AST (``flavor``);
+- ``ast_state_dict``: the same AST tree -> the reference AST ``.pth``
+  layout (``module.v.*`` and ``module.mlp_head.{0,1}.*``);
 - ``mae_state_dict_from_jax``: flax MAE params -> the reference pretraining
   model's state dict, which ``models.mae.MaskedAutoencoderViT`` loads;
 - ``jax_flat_from_state_dict``: their inverse, as the ``'/'``-joined flat
@@ -12,7 +14,7 @@
   ``{'model': state_dict}`` envelope (``state_dict_of``).
 
 The exporter helpers are the port's own copies of
-``tpat_tpu/utils/torch_export.py:19-63,85-128`` (pure numpy), so the port
+``tpat_tpu/utils/torch_export.py:19-128`` (pure numpy), so the port
 imports nothing of the JAX package.
 """
 
@@ -25,7 +27,10 @@ import torch
 
 # the LayerNorm modules of AudioViT and of the MAE (their weight is flax's
 # ``scale``)
-_LAYERNORMS = ("norm1", "norm2", "fc_norm", "norm", "decoder_norm")
+_LAYERNORMS = ("norm1", "norm2", "fc_norm", "norm", "decoder_norm",
+               "mlp_head_norm")
+# AST's head modules -> their flax names
+_AST_HEAD = {"mlp_head.0": "mlp_head_norm", "mlp_head.1": "mlp_head"}
 
 
 def _t(x) -> np.ndarray:
@@ -72,6 +77,25 @@ def audiomae_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
         _layernorm(sd, "fc_norm", params["fc_norm"])
     if "head" in params:
         _linear(sd, "head", params["head"])
+    return sd
+
+
+def ast_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """AST flax params -> the reference AST ``.pth`` layout."""
+    sd: Dict[str, np.ndarray] = {}
+    v: Dict[str, np.ndarray] = {
+        k: np.asarray(params[k], dtype=np.float32)
+        for k in ("cls_token", "dist_token", "pos_embed")
+    }
+    _conv(v, "patch_embed.proj", params["patch_embed"]["proj"])
+    for name, p in params.items():
+        if name.startswith("blocks_"):
+            _block(v, f"blocks.{int(name.split('_')[1])}", p)
+    _layernorm(v, "norm", params["norm"])
+    for k, val in v.items():
+        sd[f"module.v.{k}"] = val
+    _layernorm(sd, "module.mlp_head.0", params["mlp_head_norm"])
+    _linear(sd, "module.mlp_head.1", params["mlp_head"])
     return sd
 
 
@@ -123,10 +147,23 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
-def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(
+    params: Mapping, flavor: Optional[str] = None
+) -> Dict[str, torch.Tensor]:
     """Flax AudioViT params -> tensors ``AudioViT.load_state_dict(strict=
-    True)`` takes."""
-    return _tensors(audiomae_state_dict(params))
+    True)`` takes.  ``flavor`` 'audiomae' or 'ast'; None reads it from the
+    tree (AST's holds a ``dist_token``).  The AST keys are the reference
+    layout's without its ``module.v.``/``module.`` prefixes."""
+    if flavor is None:
+        flavor = "ast" if "dist_token" in params else "audiomae"
+    if flavor == "audiomae":
+        return _tensors(audiomae_state_dict(params))
+    if flavor != "ast":
+        raise ValueError(f"flavor must be 'audiomae' or 'ast', got {flavor!r}")
+    return _tensors({
+        k.removeprefix("module.").removeprefix("v."): v
+        for k, v in ast_state_dict(params).items()
+    })
 
 
 def mae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -138,12 +175,13 @@ def mae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 def jax_flat_from_state_dict(
     sd: Mapping[str, torch.Tensor]
 ) -> Dict[str, np.ndarray]:
-    """AudioMAE or MAE state dict -> flat flax params:
+    """AudioMAE, AST or MAE state dict -> flat flax params:
     ``blocks.3.attn.qkv.weight`` becomes ``blocks_3/attn/qkv/kernel``
     (transposed), a conv weight (O, I, kh, kw) becomes a (kh, kw, I, O)
-    kernel, a LayerNorm weight its ``scale``; the swin decoder's
-    ``attn.meta_mlp.fc{1,2}`` become ``attn/meta_fc{1,2}`` and its (H,)
-    ``attn.logit_scale`` keeps its name."""
+    kernel, a LayerNorm weight its ``scale``; AST's ``mlp_head.0`` and
+    ``mlp_head.1`` become ``mlp_head_norm`` and ``mlp_head``; the swin
+    decoder's ``attn.meta_mlp.fc{1,2}`` become ``attn/meta_fc{1,2}`` and
+    its (H,) ``attn.logit_scale`` keeps its name."""
     flat: Dict[str, np.ndarray] = {}
     for key, t in sd.items():
         a = t.detach().to("cpu", torch.float32).numpy()
@@ -151,6 +189,7 @@ def jax_flat_from_state_dict(
             flat[key] = a
             continue
         module, leaf = key.rsplit(".", 1)
+        module = _AST_HEAD.get(module, module)
         path = (module.replace(".meta_mlp.fc", ".meta_fc")
                 .replace("blocks.", "blocks_").replace(".", "/"))
         if leaf in ("bias", "logit_scale"):
