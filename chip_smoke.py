@@ -148,7 +148,25 @@ printing a result:
     same kept tokens at every drop block), its bf16 launches recorded; then
     B1-B3 vs plain at every
     recorded AST geometry, timed beside the bound and the library call;
-22. the kernels line, with the entries ``layernorm_fwd``,
+22. the waveform path and decoding patch importance on phase 20's corpus:
+    ``device_frontend`` at b128 on 5-s clips (one with a NaN tail, one
+    after a VoxCeleb NaN head of 37 frames) against the host path
+    (``fbank_numpy`` -> ``pad_or_crop`` -> ``normalize``) per clip within
+    rtol 1e-3 / atol 2e-3, and its ms per batch beside phase 20's loader
+    wait; phase 20's run with ``--device_frontend true`` (the epochs'
+    phases, each step's launches and geometry as phase 8's walks, the
+    hybrid anneal's t = 0 step staying a hybrid step, SpecAug only in the
+    dense epoch, the loader wait and step ms beside phase 20's); ``--eval
+    --flag_extract_features true`` of its best model (the file set, the
+    drop blocks' widths 180/126/89, an attn_score per block, a batch's f32
+    kept sets through the kernels equal to 'xla''s), then the port's
+    ``extract_stats`` (12 finite Kendall tau per stat, the retained count);
+    ``export_serving --device_frontend`` of phase 4's ``.pth`` at buckets
+    (1, 8) against phase 4's spectrogram artifact on the frontend's output
+    (bf16 tolerance); one b128 dense step with ``remat`` on and off (the
+    same loss, gradients within the bf16 tolerance, the peak memory of
+    each) and one at drop_rate 0.1;
+23. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
     ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
@@ -173,7 +191,8 @@ The line before the last is a JSON object with each kernel's launches (from
 the serving, training and pretrain paths, and the probes' mains), error,
 times and bound, and for the attention kernels B1-B3 ``finetune_launches``
 and ``ast_launches``, their launches in phase 20's and phase 21's runs,
-and ``ast_ms``, their time per AST hybrid train step; B2's ``noscore``
+``waveform_launches``, their launches in phase 22 (also counted in
+``launches``), and ``ast_ms``, their time per AST hybrid train step; B2's ``noscore``
 sums its calls without scores beside SDPA with the key mask; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2352,7 +2371,8 @@ def finetune_path(tmp, walks, phase8_ms, smi):
     artifacts, and an ``--eval`` of best_model that gives the logged best
     acc1.  ``phase8_ms`` (phase 8's ms per step by walk, this run) is
     logged beside the finetune steps.  Returns the run's launches (fwd,
-    prefix fwd, bwd rows, bwd cols)."""
+    prefix fwd, bwd rows, bwd cols), the corpus' paths and the loader
+    summary that phase 22 prints beside its own (``_loader_summary``)."""
     import numpy as np
 
     from tpat_tpu_torch.cli import finetune
@@ -2454,9 +2474,22 @@ def finetune_path(tmp, walks, phase8_ms, smi):
     log(f"finetune --eval of best_model: acc1 {stats['acc1']:.4f} (logged "
         f"{logged['test_acc1']:.4f}), loss {stats['loss']:.6f} (logged "
         f"{logged['test_loss']:.6f}), launches {eval_launches}")
+    summary = dict(_loader_summary(epochs), eval_ms=float(np.median(eval_ms)))
     del calls, epochs
     torch.cuda.empty_cache()
-    return launches, paths
+    return launches, paths, summary
+
+
+def _loader_summary(epochs) -> dict:
+    """The loader wait per batch (ms, mean over the run), its share of the
+    training epochs' wall time, and the first and second step's ms of each
+    epoch, from ``_finetune_recording``'s records."""
+    waits = [w for rec in epochs for w in rec["wait_ms"]]
+    return {
+        "wait_ms": sum(waits) / len(waits),
+        "wait_share": sum(waits) / sum(rec["wall_ms"] for rec in epochs),
+        "step_ms": [[round(s[0], 1) for s in rec["steps"][:2]] for rec in epochs],
+    }
 
 
 # Phase 21: scripts/ast_run_esc.sh through the port's run_ast, on phase 20's
@@ -2763,6 +2796,380 @@ def _entry(name, source, replaces, launches, err, ms, plain, bound, lib,
             **extra}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the waveform path (the device frontend on the card, training,
+# serving) and decoding patch importance (feature extraction, extract_stats),
+# then remat and dropout, on phase 20's corpus
+# ---------------------------------------------------------------------------
+
+# device frontend vs the host path, per clip: tests/test_frontend.py:34, :57
+FRONTEND_RTOL, FRONTEND_ATOL = 1e-3, 2e-3
+FRONTEND_SHORT = 3 * 16000  # the clip cut to 3 s: a NaN tail
+FRONTEND_HEAD = (37, 2 * 16000)  # a 2-s clip after 37 frames of NaN head
+# the walks of the --device_frontend run's epochs: dense, the hybrid step at
+# the cosine's t = 0 (a preprocess keeps it off the dense step; its kv_valid
+# is then N: phase 8's bucket-1.0 walk with every prefix at full width),
+# the hybrid step at bucket 0.9, static
+WAVE_WALKS = (EPOCH_LABELS[0], "t0", BUCKET_09, EPOCH_LABELS[4])
+WAVE_SPECAUG = [True, True, False, False, False, False, False, False]
+FEATURE_WIDTHS = {3: 180, 6: 126, 9: 89}  # ceil(0.7 N) at the drop blocks
+WAVE_BUCKETS = (1, 8)
+WAVE_REQUEST = 9  # clips: bucket 8, then bucket 1
+
+
+def _t0_walk(walk) -> tuple:
+    """A hybrid walk with every prefix launch at kv_valid = N (rates 1.0)."""
+    return tuple(c if c[8] is None else c[:8] + (c[2],) + c[9:] for c in walk)
+
+
+def _kept_sets_up_to_ties(picked_f, picked_x, scores_x, num_patches):
+    """Phase 10's rule (``_same_kept_tokens``: the kept sets, composed into
+    original patch ids, equal at every drop block) on a trained model's
+    f32 forward, whose scores can tie: a row whose sets differ passes only
+    where 'xla''s k-th and (k+1)-th scores at that block lie within the
+    kernel's score tolerance (SCORE_RTOL, SCORE_ATOL) of each other, so
+    either token may rank first; the row is then left out of the later
+    blocks, whose inputs differ.  Returns the tied swaps as (block index,
+    row, gap)."""
+    ids_f = ids_x = None
+    live = None
+    ties = []
+    for j, (jf, jx, sx) in enumerate(zip(picked_f, picked_x, scores_x)):
+        if ids_f is None:
+            ids_f = ids_x = torch.arange(num_patches, device=jf.device).expand(
+                jf.shape[0], -1)
+            live = torch.ones(jf.shape[0], dtype=torch.bool, device=jf.device)
+        ids_f, ids_x = ids_f.gather(1, jf), ids_x.gather(1, jx)
+        differ = (ids_f.sort(dim=1).values != ids_x.sort(dim=1).values).any(1)
+        k = jx.shape[1]
+        for row in (differ & live).nonzero().flatten().tolist():
+            top = sx[row].sort(descending=True).values
+            gap = (top[k - 1] - top[k]).item()
+            if not gap <= SCORE_RTOL * abs(top[k - 1].item()) + SCORE_ATOL:
+                raise AssertionError(
+                    f"drop block {j}: row {row} keeps other tokens with a "
+                    f"score gap of {gap:.3g} at the k-th token")
+            ties.append((j, row, gap))
+        live &= ~differ
+    return ties
+
+
+def frontend_on_card(paths, ft_loader, smi):
+    """Phase 22.1: ``device_frontend`` on a b128 batch of phase 20's 5-s
+    clips (one cut to 3 s with a NaN tail, one 2-s clip after a VoxCeleb
+    NaN head of 37 frames) against the host path (``fbank_numpy`` ->
+    ``pad_or_crop`` -> ``normalize``) per clip, then its ms per batch
+    (CUDA events).  Returns the waveform batch (numpy) and the frontend
+    config."""
+    import numpy as np
+
+    from tpat_tpu_torch.config import DATASET_PRESETS
+    from tpat_tpu_torch.data.datasets import AudiosetDataset
+    from tpat_tpu_torch.ops import fbank as fb
+    from tpat_tpu_torch.ops.frontend import FrontendConfig, device_frontend
+
+    data_cfg = dataclasses.replace(DATASET_PRESETS["esc50"],
+                                   num_classes=FINETUNE_CLASSES)
+    ds = AudiosetDataset(paths["eval"], data_cfg, paths["labels"], train=False,
+                         return_waveform=True)
+    wav = np.stack([ds[i][0] for i in range(FINETUNE_BATCH)])
+    wav[1, FRONTEND_SHORT:] = np.nan
+    frames, length = FRONTEND_HEAD
+    clip = wav[2, :length].copy()
+    wav[2] = np.nan
+    wav[2, frames * 160:frames * 160 + length] = clip
+    cfg = FrontendConfig(num_mel_bins=128, target_length=data_cfg.target_length,
+                         norm_mean=data_cfg.norm_mean, norm_std=data_cfg.norm_std)
+    x = torch.from_numpy(wav).cuda()
+    got = device_frontend(x, cfg).cpu()
+    if got.shape != (FINETUNE_BATCH, 1, cfg.target_length, 128):
+        raise AssertionError(f"frontend shape {tuple(got.shape)}")
+    worst = 0.0
+    for i in range(FINETUNE_BATCH):
+        real = clip if i == 2 else wav[i][np.isfinite(wav[i])]
+        mel = fb.pad_or_crop(fb.fbank_numpy(real), cfg.target_length,
+                             pad_left=frames if i == 2 else 0)
+        want = torch.from_numpy(fb.normalize(mel, cfg.norm_mean, cfg.norm_std))
+        worst = max(worst, _close(got[i, 0], want, FRONTEND_ATOL, FRONTEND_RTOL))
+    ms = _time_ms(lambda: device_frontend(x, cfg))
+    log(f"device frontend b{FINETUNE_BATCH} (5-s clips, 82160 samples, one "
+        f"NaN tail, one NaN head of {frames} frames): equals the host path "
+        f"within rtol {FRONTEND_RTOL} / atol {FRONTEND_ATOL} (worst |err| "
+        f"{worst:.3g}); {ms:.3f} ms per batch on the card, beside phase 20's "
+        f"loader wait of {ft_loader['wait_ms']:.1f} ms per batch ({smi})")
+    return wav, cfg
+
+
+def waveform_training(tmp, paths, walks, ft_loader, smi):
+    """Phase 22.2: ``cli.finetune.main`` with ft_esc50.sh's flags and
+    ``--device_frontend true``: the epochs' phases, each step's launches
+    and geometry against phase 8's walks (``WAVE_WALKS``), 12 B1 launches
+    per eval forward, SpecAug only in the dense epoch, the loader wait and
+    the step ms beside phase 20's.  Returns (launches, argv, out dir)."""
+    import numpy as np
+
+    from tpat_tpu_torch.cli import finetune
+    from tpat_tpu_torch.ops import qkv_attention as qa
+
+    out = os.path.join(tmp, "wave_out")
+    argv = finetune_argv(paths, out) + ["--device_frontend", "true"]
+    expected = {label: tuple(walks[label]) for label in WAVE_WALKS if label != "t0"}
+    expected["t0"] = _t0_walk(walks[EPOCH_LABELS[2]])
+    per_forward = (_walk_counts(walks[EPOCH_LABELS[4]])[0], 0, 0, 0)
+    flags = []  # the specaug argument of each train step's preprocess
+    make_preprocess = finetune.make_preprocess
+
+    def recording(data_cfg, **kw):
+        pre = make_preprocess(data_cfg, **kw)
+
+        def wrapped(x, generator, specaug, train):
+            if train:
+                flags.append(specaug)
+            return pre(x, generator, specaug, train)
+        return wrapped
+
+    finetune.make_preprocess = recording
+    calls, epochs, evals = [], [], []
+    try:
+        with _finetune_recording(qa, calls, epochs, evals):
+            qa.launches = qa.prefix_launches = 0  # the main path starts here
+            qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+            t0 = time.perf_counter()
+            finetune.main(finetune.get_args_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = _counts(qa)  # the main path ends here
+    finally:
+        finetune.make_preprocess = make_preprocess
+    with open(os.path.join(out, "log.txt")) as f:
+        logs = [json.loads(line) for line in f]
+    if [e["train_phase"] for e in logs] != FINETUNE_PHASES:
+        raise AssertionError(f"waveform run phases {[e['train_phase'] for e in logs]}")
+    if not all(math.isfinite(e[k]) for e in logs for k in ("train_loss", "test_loss")):
+        raise AssertionError(f"waveform run log {logs}")
+    if flags != WAVE_SPECAUG:
+        raise AssertionError(f"SpecAug per step {flags}, expected {WAVE_SPECAUG}")
+    summed = [0, 0, 0, 0]
+    for rec, label in zip(epochs, WAVE_WALKS):
+        want = expected[label]
+        for _ms, got, step_calls in rec["steps"]:
+            if step_calls != want or got != _walk_counts(want):
+                raise AssertionError(
+                    f"waveform epoch {rec['epoch']}: launches {got} at "
+                    f"{len(step_calls)} recorded calls; expected "
+                    f"{_walk_counts(want)} at {len(want)} ({label})")
+            summed = [a + b for a, b in zip(summed, got)]
+    for _ms, got, rows in evals:
+        if got != per_forward:
+            raise AssertionError(f"waveform eval forward of {rows} rows launched {got}")
+        summed[0] += got[0]
+    if tuple(summed) != launches:
+        raise AssertionError(f"waveform launches {launches}, steps and eval "
+                             f"forwards account for {tuple(summed)}")
+    mine = _loader_summary(epochs)
+    eval_ms = float(np.median([ms for ms, _, _ in evals]))
+    log(f"waveform finetune run (--device_frontend true): phases "
+        f"{FINETUNE_PHASES}, SpecAug per step {flags}, every step's launches "
+        f"and geometry as phase 8's walk ({', '.join(WAVE_WALKS)}), launches "
+        f"{launches}; {wall_s:.1f} s wall; loader wait {mine['wait_ms']:.1f} "
+        f"ms per batch, {mine['wait_share']:.3f} of the epochs (phase 20: "
+        f"{ft_loader['wait_ms']:.1f} ms, {ft_loader['wait_share']:.3f}); "
+        f"first and second step ms per epoch {mine['step_ms']} (phase 20: "
+        f"{ft_loader['step_ms']}); eval forwards (the frontend included) "
+        f"{eval_ms:.2f} ms median of {len(evals)} "
+        f"(phase 20: {ft_loader['eval_ms']:.2f}); test_acc1 per epoch "
+        f"{[round(e['test_acc1'], 2) for e in logs]} ({smi})")
+    del calls, epochs
+    torch.cuda.empty_cache()
+    return launches, argv, out
+
+
+def feature_extraction(tmp, argv, out, smi):
+    """Phase 22.3: ``--eval --flag_extract_features true`` of the waveform
+    run's best_model: the file set, the drop blocks' widths, an attn_score
+    per block; the kept sets of a batch's f32 forward through the kernels
+    equal to 'xla''s up to tied scores (``_kept_sets_up_to_ties``); then
+    the port's extract_stats
+    (Kendall tau per block for both stats, the retained count).  Returns
+    the eval's launches."""
+    import numpy as np
+
+    from tpat_tpu_torch.analysis import extract_stats
+    from tpat_tpu_torch.cli import finetune
+    from tpat_tpu_torch.config import audiomae_vit_base
+    from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.ops import qkv_attention as qa
+    from tpat_tpu_torch.utils import checkpoint as ckpt_lib
+
+    feats = os.path.join(tmp, "wave_features")
+    best = os.path.join(out, "best_model")
+    c0 = _counts(qa)
+    stats = finetune.main(finetune.get_args_parser().parse_args(argv + [
+        "--eval", "--finetuned_model_path", best, "--flag_extract_features",
+        "true", "--extract_features_path", feats,
+        "--result_path", os.path.join(out, "extract_result.txt")]))
+    torch.cuda.synchronize()
+    launches = tuple(a - b for a, b in zip(_counts(qa), c0))
+    batches = -(-FINETUNE_CLIPS[1] // FINETUNE_BATCH)
+    keys = {"mel", "labels", *(f"block-{i}.attn_score" for i in range(12)),
+            *(f"block-{i}.topk_idx" for i in FEATURE_WIDTHS)}
+    want = sorted(f"{k}.{i:04d}.pth" for k in keys for i in range(batches))
+    if sorted(os.listdir(feats)) != want:
+        raise AssertionError(f"feature files {sorted(os.listdir(feats))}")
+    for blk, width in FEATURE_WIDTHS.items():
+        idx = torch.load(os.path.join(feats, f"block-{blk}.topk_idx.0000.pth"))
+        if tuple(idx.shape) != (FINETUNE_BATCH, width):
+            raise AssertionError(f"block {blk} topk_idx {tuple(idx.shape)}")
+    mel = torch.load(os.path.join(feats, "mel.0000.pth"))
+    if tuple(mel.shape) != (FINETUNE_BATCH, 1, 512, 128):
+        raise AssertionError(f"mel feature {tuple(mel.shape)}")
+
+    sd = ckpt_lib.restore_checkpoint(best)["model"]
+    picked, scores = {}, {}
+    for impl in ("fused", "xla"):
+        cfg = audiomae_vit_base(target_length=512, num_classes=FINETUNE_CLASSES,
+                                base_keep_rate=0.7, drop_loc=(3, 6, 9),
+                                compute_dtype="float32", attention_impl=impl)
+        model = AudioViT(cfg, device="cuda")
+        model.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            _, f = model.eval()(mel.cuda(), extract_features=True)
+        picked[impl] = [f[f"block-{b}.topk_idx"] for b in FEATURE_WIDTHS]
+        scores[impl] = [f[f"block-{b}.attn_score"] for b in FEATURE_WIDTHS]
+    ties = _kept_sets_up_to_ties(picked["fused"], picked["xla"], scores["xla"],
+                                 cfg.num_patches)
+
+    t0 = time.perf_counter()
+    stats_dir = os.path.join(tmp, "wave_stats")
+    for flag in ("--kendall_rank_mean", "--kendall_rank_std"):
+        extract_stats.main(["--feature_dict_path", feats, "--output_dir",
+                            stats_dir, flag, "--fig_title", "ESC-50"])
+    taus = {}
+    for stat in ("mean", "std"):
+        with open(os.path.join(stats_dir, f"kendall_rank_{stat}.json")) as f:
+            taus[stat] = json.load(f)["ESC-50"]
+        if len(taus[stat]) != 12 or not all(map(math.isfinite, taus[stat])):
+            raise AssertionError(f"Kendall tau ({stat}): {taus[stat]}")
+    retained = extract_stats.retained_token_analyze(feats)
+    stats_s = time.perf_counter() - t0
+    log(f"feature extraction (--eval --flag_extract_features true, "
+        f"{FINETUNE_CLIPS[1]} clips): {len(want)} files, topk widths "
+        f"{list(FEATURE_WIDTHS.values())}, acc1 {stats['acc1']:.2f}, launches "
+        f"{launches}; f32 kept sets equal to 'xla''s at blocks "
+        f"{list(FEATURE_WIDTHS)} but for rows swapping tied tokens (block, "
+        f"row, 'xla''s k-th minus (k+1)-th score): {ties}; "
+        f"extract_stats in {stats_s:.1f} s: Kendall tau per block, mean "
+        f"{[round(t, 4) for t in taus['mean']]}, std "
+        f"{[round(t, 4) for t in taus['std']]}; retained low-intensity tokens "
+        f"{retained} ({smi})")
+    return launches
+
+
+def waveform_serving(tmp, spec_dir, wav, fcfg):
+    """Phase 22.4: ``export_serving --device_frontend`` of phase 4's .pth at
+    buckets (1, 8); ``load_forward`` on 9 waveforms (bucket 8, then 1;
+    the NaN-tail and NaN-head clips among them) against phase 4's
+    spectrogram artifact on ``device_frontend``'s output, within phase 4's
+    bf16 tolerance.  Returns its launches."""
+    from tpat_tpu_torch.cli import export_serving
+    from tpat_tpu_torch.ops import qkv_attention as qa
+    from tpat_tpu_torch.ops.frontend import device_frontend
+    from tpat_tpu_torch.utils.serving import load_forward
+
+    out_dir = os.path.join(tmp, "wave_artifact")
+    export_serving.main(export_serving.get_parser().parse_args([
+        "--model", "audiomae_vit_base", "--dataset", "esc50",
+        "--nb_classes", "50", "--base_keep_rate", "0.7",
+        "--drop_loc", "(3, 6, 9)", "--compute_dtype", "bfloat16",
+        "--finetuned_model_path", os.path.join(tmp, "vit_b_esc50.pth"),
+        "--batch_size", ",".join(map(str, WAVE_BUCKETS)), "--out_dir", out_dir,
+        "--device_frontend"]))
+    wfn, meta = load_forward(out_dir, device="cuda")
+    if meta["frontend"]["input"] != "waveform" or meta["input_shape"] != [None, 82160]:
+        raise AssertionError(f"waveform artifact meta {meta}")
+    sfn, _ = load_forward(spec_dir, device="cuda")
+    x = torch.from_numpy(wav[:WAVE_REQUEST]).cuda()
+    c0 = _counts(qa)
+    got = wfn(x)
+    torch.cuda.synchronize()
+    launches = tuple(a - b for a, b in zip(_counts(qa), c0))
+    want = sfn(device_frontend(x, fcfg))
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    if got.shape != (WAVE_REQUEST, 50) or not err <= BF16_LOGIT_REL:
+        raise AssertionError(f"waveform serving: {tuple(got.shape)}, err / "
+                             f"max|logit| {err:.3g} > {BF16_LOGIT_REL}")
+    if launches != (24, 0, 0, 0):
+        raise AssertionError(f"waveform serving launches {launches}")
+    log(f"waveform serving (buckets {WAVE_BUCKETS}, {WAVE_REQUEST} clips): "
+        f"logits vs the spectrogram artifact on device_frontend's output, err "
+        f"/ max|logit| {err:.3g} (<= {BF16_LOGIT_REL}); launches {launches}")
+    return launches
+
+
+def remat_and_dropout(sd, smi):
+    """Phase 22.5: one b128 bf16 dense train step (2D masking, drop-path
+    0.1) with ``remat`` off and on, from the same weights, batch and
+    generator: the loss within STEP_LOSS_RTOL, every gradient within GRAD_BF16_REL of its
+    largest |entry|, and the peak memory of each; then a step at drop_rate
+    0.1, whose loss must differ from drop_rate 0's."""
+    from tpat_tpu_torch.cli import profile_train
+    from tpat_tpu_torch.engine.train import TrainModule
+
+    cfg, tc = _train_configs("bfloat16", 0.1)
+    (x, y), = profile_train.synthetic_batches(cfg, FINETUNE_BATCH, 1, SEED + 6)
+
+    def step(c):
+        mod = TrainModule(c, tc, "ce", iters_per_epoch=2, device="cuda")
+        state = mod.load(sd, seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, grads = mod.loss_and_grads(state, x, y, "dense",
+                                         mask_prob=tc.mask_t_prob)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        names = [n for g in state.optimizer.param_groups for n in g["names"]]
+        out = loss.item(), dict(zip(names, grads)), peak
+        del state, mod
+        torch.cuda.empty_cache()
+        return out
+
+    l0, g0, peak0 = step(cfg)
+    l1, g1, peak1 = step(dataclasses.replace(cfg, remat=True))
+    if not abs(l1 - l0) <= STEP_LOSS_RTOL * abs(l0):
+        raise AssertionError(f"remat: loss {l1} vs {l0}")
+    worst = 0.0
+    for k, g in g0.items():
+        scale = g.abs().max().item()
+        err = (g1[k] - g).abs().max().item()
+        if not err <= GRAD_BF16_REL * scale:
+            raise AssertionError(f"remat: grad {k} err {err:.3g} > "
+                                 f"{GRAD_BF16_REL} x {scale:.3g}")
+        worst = max(worst, err / scale if scale else 0.0)
+    ld, _, _ = step(dataclasses.replace(cfg, drop_rate=0.1))
+    if not math.isfinite(ld) or ld == l0:
+        raise AssertionError(f"dropout 0.1: loss {ld} (drop_rate 0: {l0})")
+    log(f"remat, b{FINETUNE_BATCH} bf16 dense step: loss {l1:.6f}, {l0:.6f} "
+        f"without; {len(g0)} gradients, worst err / max|grad| {worst:.3g}; "
+        f"peak memory above the state {peak1 / 2**30:.2f} GiB with remat, "
+        f"{peak0 / 2**30:.2f} GiB without; drop_rate 0.1: loss {ld:.6f} "
+        f"({smi})")
+
+
+def waveform_path(tmp, paths, walks, ft_loader, spec_dir, sd, smi):
+    """Phase 22; returns its launches (fwd, prefix fwd, bwd rows, bwd cols):
+    the waveform training run, the extraction eval and the waveform
+    serving forwards."""
+    t0 = time.perf_counter()
+    wav, fcfg = frontend_on_card(paths, ft_loader, smi)
+    train, argv, out = waveform_training(tmp, paths, walks, ft_loader, smi)
+    extract = feature_extraction(tmp, argv, out, smi)
+    serve = waveform_serving(tmp, spec_dir, wav, fcfg)
+    remat_and_dropout(sd, smi)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return tuple(a + b + c for a, b, c in zip(train, extract, serve))
+
+
 def main():
     with tempfile.TemporaryDirectory() as tmp:
         run_phases(tmp)
@@ -2797,13 +3204,18 @@ def run_phases(tmp):
     probe_err, probe_times, p3_identity = probes_vs_plain()
     p3_sass = sass_check("ln_matmul", "ln_matmul_bf16_tc_kernel")
     probe_launches = probe_mains()
-    finetune_launches, corpus = finetune_path(tmp, walks, train_step_ms, smi)
+    finetune_launches, corpus, ft_loader = finetune_path(tmp, walks,
+                                                         train_step_ms, smi)
     if min(finetune_launches) == 0:
         raise AssertionError(f"finetune launches {finetune_launches}")
     ast_launches, ast_walks = ast_path(tmp, corpus, smi)
     if min(ast_launches) == 0:
         raise AssertionError(f"AST launches {ast_launches}")
     ast_sums, ast_err = path_kernels_vs_plain(ast_walks)
+    wave_launches = waveform_path(tmp, corpus, walks, ft_loader, out_dir, sd,
+                                  smi)
+    if min(wave_launches) == 0:
+        raise AssertionError(f"waveform path launches {wave_launches}")
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
     window_launches = {"B5 fwd": esc50[3], "B6 fwd": audioset[4],
@@ -2828,7 +3240,8 @@ def run_phases(tmp):
     fwd_build = bf16_build("qkv_attention", "qkv_attention_fwd_bf16_kernel")
     kernels = [
         _entry("qkv_attention_fwd", "qkv_attention.cu", "tpat_tpu/ops/pallas_attention.py:121",
-               serve_launches + train_launches[0] + audioset[0] + esc50[0],
+               serve_launches + train_launches[0] + audioset[0] + esc50[0]
+               + wave_launches[0],
                max(grid_err, timed_err, path_err["B1"], pre_err["B1"],
                    ast_err["B1"]),
                ms, plain_ms, bound_of(serve_bound), None,
@@ -2838,10 +3251,12 @@ def run_phases(tmp):
                     "9 without scores are timed against the library call in "
                     "phase 3; " + ast_note,
                finetune_launches=finetune_launches[0],
+               waveform_launches=wave_launches[0],
                ast_launches=ast_launches[0], ast_ms=ast_step["B1"][0],
                **fwd_build),
         _entry("qkv_attention_prefix_fwd", "qkv_attention.cu",
-               "tpat_tpu/ops/pallas_attention.py:121", train_launches[1],
+               "tpat_tpu/ops/pallas_attention.py:121",
+               train_launches[1] + wave_launches[1],
                max(prefix_err, path_err["B2"], ast_err["B2"]), step["B2"][0],
                step["B2"][1], bound_of(step["B2bound"]), step["B2lib"],
                per_step,
@@ -2852,23 +3267,28 @@ def run_phases(tmp):
                     "patch_mean scores; noscore sums the calls without "
                     "scores, which SDPA with the key mask computes; " + ast_note,
                finetune_launches=finetune_launches[1],
+               waveform_launches=wave_launches[1],
                ast_launches=ast_launches[1], ast_ms=ast_step["B2"][0],
                **fwd_build),
         _entry("qkv_attention_bwd_rows", "qkv_attention_bwd.cu", bwd,
-               train_launches[2] + audioset[1] + esc50[1], b3_err,
+               train_launches[2] + audioset[1] + esc50[1] + wave_launches[2],
+               b3_err,
                step["B3"][0], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"], note=bwd_note + "; " + ast_note,
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[2],
+               waveform_launches=wave_launches[2],
                ast_launches=ast_launches[2], ast_ms=ast_step["B3"][0],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_rows_bf16_kernel")),
         _entry("qkv_attention_bwd_cols", "qkv_attention_bwd.cu", bwd,
-               train_launches[3] + audioset[2] + esc50[2], b3_err,
+               train_launches[3] + audioset[2] + esc50[2] + wave_launches[3],
+               b3_err,
                step["B3"][1], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"], note=bwd_note + "; " + ast_note,
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[3],
+               waveform_launches=wave_launches[3],
                ast_launches=ast_launches[3], ast_ms=ast_step["B3"][1],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_cols_bf16_kernel")),

@@ -233,10 +233,30 @@ def test_label_maps_match_jax(corpus):
 
 
 def test_waveform_mode_refused(corpus):
+    """The waveform mode (refused until the device frontend was ported) now
+    runs: over two epochs of a train set with mixup, roll-magnitude and the
+    noise flag, and of the eval set, every item's waveform (its NaN tail
+    included), soft labels and name bit-equal to the JAX dataset's."""
     manifest, label_csv, _ = corpus
-    with pytest.raises(NotImplementedError, match="A8"):
-        ds_lib.AudiosetDataset(manifest, _data_cfg(cfg_lib), label_csv,
-                               return_waveform=True)
+    kw = dict(freqm=8, timem=8, mixup=0.6, use_noise=True)
+    for train in (True, False):
+        args = dict(train=train, roll_mag_aug=train, seed=5,
+                    return_waveform=True)
+        mine = ds_lib.AudiosetDataset(manifest, _data_cfg(cfg_lib, **kw),
+                                      label_csv, **args)
+        theirs = jds.AudiosetDataset(manifest, _data_cfg(jcfg, **kw),
+                                     label_csv, **args)
+        assert mine.num_samples == theirs.num_samples == 95 * 160 + 400
+        for epoch in (0, 1):
+            mine.set_epoch(epoch)
+            theirs.set_epoch(epoch)
+            for i in range(len(mine)):
+                (x, y, name), (wx, wy, wname) = mine[i], theirs[i]
+                assert x.shape == (mine.num_samples,) and x.dtype == np.float32
+                np.testing.assert_array_equal(x, wx)
+                np.testing.assert_array_equal(y, wy)
+                assert name == wname
+    assert np.isnan(mine[1][0]).any()  # the 0.7-s clip: a NaN tail
 
 
 @pytest.fixture(scope="module")

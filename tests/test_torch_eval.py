@@ -183,13 +183,26 @@ def test_evaluate_feature_callback_matches_jax():
 
 
 def test_evaluate_refuses_unported():
+    """The multi-process gather (A11) is refused.  ``preprocess`` (refused
+    until the device frontend was ported) now runs at the head of each
+    eval forward with specaug=False and train=False, so the metrics are
+    those of the preprocessed batches."""
     kw = _kw()
     _, _, model = _pair(kw)
-    batches = _batches(kw, (2,))
-    for bad, item in ((dict(preprocess=lambda x: x), "A8"),
-                      (dict(allgather=True), "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            evaluate.evaluate_classification(model, batches, 2, **bad)
+    batches = _batches(kw, (2, 1))
+    seen = []
+
+    def double(x, generator, specaug, train):
+        seen.append((generator, specaug, train, x.shape[0]))
+        return 2.0 * x
+
+    got = evaluate.evaluate_classification(model, batches, 2, preprocess=double)
+    want = evaluate.evaluate_classification(
+        model, [(2.0 * x, y) for x, y in batches], 2)
+    assert got == want
+    assert seen == [(None, False, False, 2)] * 2  # the ragged batch padded
+    with pytest.raises(NotImplementedError, match="A11"):
+        evaluate.evaluate_classification(model, batches, 2, allgather=True)
 
 
 def test_smoothed_value_and_metric_logger_match_jax():

@@ -203,15 +203,80 @@ def test_pretrained_head_kernel_reinitialized(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--eval", "--finetuned_model_path", "m", "--flag_extract_features", "true",
-      "--extract_features_path", "f"], "A7"),
-    (["--device_frontend", "true"], "A8"),
+    (["--eval", "--finetuned_model_path", "{pth}", "--flag_extract_features",
+      "true", "--extract_features_path", "{feats}"], "A7"),
+    (["--device_frontend", "true", "--freqm", "0", "--timem", "0"], "A8"),
     (["--device_dataset", "true"], "A10"),
     (["--model_axis", "2"], "A11"),
 ])
-def test_unported_flags_refused(corpus, tmp_path, flags, item):
+def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
+    """A10 and A11 are refused, naming their ROADMAP items.  The flags of A7
+    and A8, refused until they were ported, now run: feature extraction
+    writes every block's features for the analysis (held against the JAX
+    CLI in test_torch_features.py), and the device frontend trains beside
+    tpat_tpu.cli.finetune with the same flags (without SpecAug or noise):
+    the log within rtol 1e-4."""
+    if item == "A7":
+        pth, feats = tmp_path / "model.pth", tmp_path / "feats"
+        _pretrained_pth(pth)
+        cfg = audiomae_vit_tiny(target_length=128, num_classes=4, drop_loc=(1, 3))
+        sd = torch.load(pth)["model"]
+        sd = {k: v[:, :cfg.num_patches + 1] if k == "pos_embed" else v
+              for k, v in sd.items()}
+        sd["head.weight"], sd["head.bias"] = sd["head.weight"][:4], sd["head.bias"][:4]
+        torch.save({"model": sd}, pth)
+        argv = [f.format(pth=pth, feats=feats) for f in flags]
+        _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *argv))
+        names = set(os.listdir(feats))
+        for key in ("mel", "labels", "block-1.topk_idx", "block-3.topk_idx",
+                    *(f"block-{i}.attn_score" for i in range(cfg.depth))):
+            assert f"{key}.0000.pth" in names, key
+        from tpat_tpu_torch.analysis import extract_stats
+        taus, _ = extract_stats.kendall_rank(str(feats), None, "mean",
+                                             num_blocks=cfg.depth)
+        assert len(taus) == cfg.depth
+        return
+    if item == "A8":
+        _finetune_beside_jax(corpus, tmp_path, monkeypatch, flags)
+        return
     with pytest.raises(NotImplementedError, match=item):
         _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *flags))
+
+
+def test_device_frontend_specaug_only_in_the_dense_epoch(corpus, tmp_path,
+                                                        monkeypatch):
+    """--device_frontend with SpecAug on: the preprocess of every train step
+    gets specaug=True in the dense epoch only, and False at the hybrid
+    anneal's t = 0 step, which stays a hybrid step instead of taking the
+    dense one (whose SpecAug the shrink must keep off); eval forwards get
+    train=False."""
+    calls = []
+    real = ft.make_preprocess
+
+    def recording(data_cfg, **kw):
+        pre = real(data_cfg, **kw)
+
+        def wrapped(x, generator, specaug, train):
+            calls.append((specaug, train))
+            return pre(x, generator, specaug, train)
+        return wrapped
+
+    monkeypatch.setattr(ft, "make_preprocess", recording)
+    phases = []
+    real_step = ft.TrainModule.train_step
+
+    def step(self, state, acc, x, y, phase, *a, **kw):
+        phases.append(phase)
+        return real_step(self, state, acc, x, y, phase, *a, **kw)
+
+    monkeypatch.setattr(ft.TrainModule, "train_step", step)
+    _run(_argv(corpus, tmp_path / "o", "--epochs", "3", "--shrink_start_epoch",
+               "1", "--shrink_epochs", "1", "--device_frontend", "true",
+               "--freqm", "4", "--timem", "8", "--first_eval_ep", "2"))
+    train = [specaug for specaug, is_train in calls if is_train]
+    assert train == [True, True, False, False, False, False]
+    assert phases == ["dense", "dense", "anneal", "anneal", "static", "static"]
+    assert [c for c in calls if not c[1]] == [(False, False)]  # one eval batch
 
 
 def test_more_than_one_process_refused(corpus, tmp_path, monkeypatch):
@@ -257,6 +322,11 @@ def test_finetune_cli_matches_jax_cli(corpus, tmp_path, monkeypatch):
     test_acc1 and test_loss within rtol 1e-4.  The head weight, which each
     CLI draws fresh from its own generator, is carried from the JAX run
     into the port's."""
+    _finetune_beside_jax(corpus, tmp_path, monkeypatch,
+                         ["--freqm", "4", "--timem", "8"])
+
+
+def _finetune_beside_jax(corpus, tmp_path, monkeypatch, extra):
     from tpat_tpu.cli import finetune as jft
 
     pth = tmp_path / "pretrained.pth"
@@ -264,8 +334,9 @@ def test_finetune_cli_matches_jax_cli(corpus, tmp_path, monkeypatch):
     flags = ["--epochs", "3", "--shrink_start_epoch", "1", "--shrink_epochs", "1",
              "--compute_dtype", "float32", "--drop_path", "0.0",
              "--mask_t_prob", "0.0", "--mask_f_prob", "0.0",
-             "--freqm", "4", "--timem", "8", "--roll_mag_aug", "true",
-             "--audioset_pretrained_model_path", str(pth), "--blr", "5e-3"]
+             "--roll_mag_aug", "true",
+             "--audioset_pretrained_model_path", str(pth), "--blr", "5e-3",
+             *extra]
     heads = []
     real_load = jft.load_params
 

@@ -395,7 +395,8 @@ def test_masked_paths_refuse_what_is_not_ported():
     with pytest.raises(ValueError, match="bucket_rates"):
         model.forward_hybrid(x, cfg.keep_rates, num_left=(16,) * 4,
                              bucket_rates=(1.0,))
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # dropout is ported: in training it needs the generator
+    with pytest.raises(ValueError, match="dropout"):
         AudioViT(dataclasses.replace(cfg, drop_rate=0.1)).forward_masked(
             x, cfg.keep_rates
         )

@@ -27,7 +27,10 @@ MODULES = (
     "tpat_tpu_torch.models.pos_embed, tpat_tpu_torch.utils.torch_import, "
     "tpat_tpu_torch.utils.checkpoint, tpat_tpu_torch.cli.finetune, "
     "tpat_tpu_torch.cli.get_norm_stats, "
-    "tpat_tpu_torch.cli.create_voxceleb1_csv, tpat_tpu_torch.cli.run_ast"
+    "tpat_tpu_torch.cli.create_voxceleb1_csv, tpat_tpu_torch.cli.run_ast, "
+    "tpat_tpu_torch.analysis, tpat_tpu_torch.analysis.stats, "
+    "tpat_tpu_torch.analysis.extract_stats, tpat_tpu_torch.analysis.reducers, "
+    "tpat_tpu_torch.utils.features, tpat_tpu_torch.ops.frontend"
 )
 FORBIDDEN = ("jax", "flax", "tpat_tpu")  # top-level package names
 LIBRARY_ATTENTION = "scaled_dot_product_attention"

@@ -131,18 +131,25 @@ def test_vit_b_esc50_token_walk_on_cpu():
 
 
 def test_unported_features_refuse():
+    """What a forward refuses.  remat and dropout, refused until they were
+    ported, now build and run (held against JAX and against no remat in
+    test_torch_remat_dropout.py); in training, 2D masking, drop-path and
+    dropout draw from an explicit generator and refuse to run without
+    one."""
     cfg = _cfg()
     model = AudioViT(cfg).eval()
     x = torch.zeros(1, 1, 128, 128)
-    with pytest.raises(NotImplementedError, match="remat"):
-        AudioViT(dataclasses.replace(cfg, remat=True))
-    # 2D masking and drop-path are ported; in training they draw from an
-    # explicit generator and refuse to run without one
+    with torch.no_grad():
+        want = model(x)
+        remat = AudioViT(dataclasses.replace(cfg, remat=True)).eval()
+        torch.testing.assert_close(remat(x), want, rtol=0, atol=0)
+        dropout = AudioViT(dataclasses.replace(cfg, drop_rate=0.1)).eval()
+        torch.testing.assert_close(dropout(x), want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="2D masking"):
         model(x, mask_t_prob=0.2, mask_f_prob=0.2)
     with pytest.raises(ValueError, match="drop-path"):
         AudioViT(dataclasses.replace(cfg, drop_path_rate=0.1))(x)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout"):
         AudioViT(dataclasses.replace(cfg, drop_rate=0.1))(x)
     with pytest.raises(ValueError, match="keep_rates"):
         model(x, (1.0,))

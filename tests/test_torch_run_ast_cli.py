@@ -265,11 +265,62 @@ def test_specaug_table_and_switch_off(corpus, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--eval", "--flag_extract_features", "true",
-      "--extract_features_path", "f"], "A7"),
-    (["--device_frontend", "true"], "A8"),
+      "--extract_features_path", "{feats}"], "A7"),
+    (["--device_frontend", "true", "--freqm", "0", "--timem", "0",
+      "--noise", "False"], "A8"),
     (["--device_dataset", "true"], "A10"),
 ])
-def test_unported_flags_refused(corpus, tmp_path, flags, item):
+def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
+    """A10 is refused, naming its ROADMAP item.  The flags of A7 and A8,
+    refused until they were ported, now run: --eval of a kept model writes
+    its features (cls scores at every block, the drop blocks' top-k, the
+    spectrogram in AST's orientation), and the device frontend trains
+    beside tpat_tpu.cli.run_ast with the same flags, from the same initial
+    weights: result.csv within rtol 1e-4."""
+    if item == "A7":
+        exp = tmp_path / "o"
+        _run(_argv(corpus, exp, "--n-epochs", "1", "--imagenet_pretrain",
+                   "False"))
+        feats = tmp_path / "feats"
+        _run(_argv(corpus, exp, "--imagenet_pretrain", "False",
+                   *[f.format(feats=feats) for f in flags]))
+        names = set(os.listdir(feats))
+        for key in ("mel", "labels", "block-1.topk_idx", "block-3.topk_idx",
+                    *(f"block-{i}.attn_score" for i in range(6))):
+            assert f"{key}.0000.pth" in names, key
+        mel = torch.load(feats / "mel.0000.pth")
+        assert mel.shape == (8, 1, 128, 128)
+        assert torch.load(feats / "labels.0000.pth") == ["temp"] * 8
+        with pytest.raises(FileExistsError):
+            _run(_argv(corpus, exp, "--imagenet_pretrain", "False",
+                       *[f.format(feats=feats) for f in flags]))
+        return
+    if item == "A8":
+        from tpat_tpu.cli import run_ast as jrun
+        from tpat_tpu.engine import train as jtrain
+
+        run = ["--n-epochs", "3", "--shrink_start_epoch", "2", "--shrink_epochs",
+               "1", "--imagenet_pretrain", "False", "--compute_dtype", "float32",
+               "--lr", "1e-3", "--lrscheduler_start", "2", *flags]
+        first = []
+        real_load = jtrain.TrainModule.load
+
+        def load(self, params, seed=None):
+            first.append(jax.tree_util.tree_map(np.asarray, params))
+            return real_load(self, params, seed)
+
+        monkeypatch.setattr(jtrain.TrainModule, "load", load)
+        jexp = tmp_path / "jax"
+        jbest = jrun.main(jrun.get_parser().parse_args(_argv(corpus, jexp, *run)))
+        monkeypatch.setattr(run_ast, "initial_state_dict",
+                            lambda args, cfg: state_dict_from_jax(first[0], "ast"))
+        exp = tmp_path / "port"
+        best = _run(_argv(corpus, exp, *run))
+        got = np.loadtxt(exp / "result.csv", delimiter=",")
+        want = np.loadtxt(jexp / "result.csv", delimiter=",")
+        np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=CLI_RTOL)
+        assert np.isfinite(got).all() and best == jbest
+        return
     with pytest.raises(NotImplementedError, match=item):
         _run(_argv(corpus, tmp_path / "o", *flags))
 

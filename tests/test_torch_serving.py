@@ -18,6 +18,7 @@ from tpat_tpu.models.vit import AudioViT as JaxAudioViT
 from tpat_tpu.utils import serving as jserving
 from tpat_tpu_torch.cli import export_serving, profile_forward
 from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.ops.frontend import FrontendConfig, device_frontend
 from tpat_tpu_torch.utils import serving
 from tpat_tpu_torch.utils.weights import (
     jax_flat_from_state_dict,
@@ -146,9 +147,26 @@ def test_cli_help_and_export_from_pth(tmp_path):
         want = torch.cat([model.eval()(x[:2]), model(x[2:])])
     torch.testing.assert_close(fn(x), want, rtol=0, atol=0)
 
-    for bad in (["--device_frontend"], ["--batch_size", "0"]):
-        with pytest.raises(SystemExit):
-            export_serving.cli(argv + bad)
+    with pytest.raises(SystemExit):
+        export_serving.cli(argv + ["--batch_size", "0"])
+    # --device_frontend (refused until the device frontend was ported) now
+    # writes a waveform artifact: raw PCM of 400 + 31 * 160 samples, the
+    # esc50 preset's normalisation, the frontend before the model
+    wave_dir = str(tmp_path / "wave")
+    wave_argv = argv[:-1] + [wave_dir, "--device_frontend"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_serving.cli(wave_argv)
+    wfn, wmeta = serving.load_forward(wave_dir, device="cpu")
+    assert wmeta["frontend"]["input"] == "waveform"
+    assert wmeta["input_shape"] == [None, 5360]
+    wav = np.random.default_rng(3).normal(size=(3, 5360)).astype(np.float32) * 0.1
+    wav[2, 3000:] = np.nan  # a short clip: the NaN-tail contract
+    fcfg = FrontendConfig(target_length=32, norm_mean=-6.6268077,
+                          norm_std=5.358466)
+    with torch.no_grad():  # the dispatch: bucket 2, then bucket 1
+        want = torch.cat([model(device_frontend(torch.from_numpy(w), fcfg))
+                          for w in (wav[:2], wav[2:])])
+    torch.testing.assert_close(wfn(wav), want, rtol=0, atol=0)
     orbax = argv.copy()
     orbax[orbax.index(str(pth))] = str(tmp_path / "best_model")
     with pytest.raises(SystemExit, match="tpat-convert"):

@@ -8,8 +8,10 @@ Ported so far: the AudioMAE-flavour ViT (``models.vit.AudioViT``: static,
 masked and hybrid forwards) with its serving export (``utils.serving``,
 ``cli.export_serving``), training engine (``engine.train``) and finetune
 CLI (``cli.finetune``: the host data pipeline ``data``, ``ops.fbank``,
-``engine.evaluate``, ``utils.checkpoint``), MAE pretraining
-(``models.mae``, ``engine.pretrain``), the kernels of those paths
+``engine.evaluate``, ``utils.checkpoint``), the AST CLI
+(``cli.run_ast``), the device frontend (``ops.frontend``), feature
+extraction and its analysis (``utils.features``, ``analysis``), MAE
+pretraining (``models.mae``, ``engine.pretrain``), the kernels of those paths
 (``ops.qkv_attention``, ``ops.window_attention``, ``ops.layernorm``) and
 the kernel probes (``probes``).
 

@@ -7,7 +7,10 @@ model's own geometry, so no surgery; an AST one, ``module.v.*`` and
 writes ``params.npz`` + ``meta.json`` (``utils/serving.py``), which
 ``utils.serving.load_forward`` serves on the GPU with bucketed dispatch.
 The input is (n, 1, target_length, mel bins) for AudioMAE and AST's
-(n, 1, mel bins, target_length) for an ``ast_*`` model.
+(n, 1, mel bins, target_length) for an ``ast_*`` model; with
+``--device_frontend``, raw waveforms (n, num_samples), and the served
+forward runs the device frontend first (``ops/frontend.py``; short clips
+carry a NaN tail, as ``meta.json`` states).
 
 Example:
     python -m tpat_tpu_torch.cli.export_serving \\
@@ -45,10 +48,14 @@ def get_parser():
                    help="accepted for flag parity with tpat_tpu; the port's "
                         "artifact holds no lowered program, so it is unused")
     p.add_argument("--device_frontend", action="store_true",
-                   help="waveform input with the on-device fbank: not "
-                        "ported yet (refused)")
+                   help="serve raw PCM (batch, num_samples): the fbank, "
+                        "pad with the minimum and normalisation run on the "
+                        "device before the model (NaN head/tail short-clip "
+                        "contract, stated in meta.json)")
     p.add_argument("--num_samples", type=int, default=None,
-                   help="waveform length for --device_frontend (not ported)")
+                   help="waveform length for --device_frontend; default: "
+                        "exactly target_length frames (400 + "
+                        "(target_length - 1) * 160 samples at 16 kHz)")
     return p
 
 
@@ -68,11 +75,6 @@ def _parse_batch_sizes(raw) -> list:
 
 def main(args):
     batches = _parse_batch_sizes(args.batch_size)
-    if args.device_frontend:
-        raise SystemExit(
-            "--device_frontend is not ported to tpat_tpu_torch yet; export "
-            "spectrogram input instead"
-        )
     path = args.finetuned_model_path
     if not path.endswith(".pth"):
         raise SystemExit(
@@ -82,6 +84,7 @@ def main(args):
 
     from tpat_tpu_torch import config as cfg_lib
     from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.ops.frontend import FrontendConfig
     from tpat_tpu_torch.utils import serving
     from tpat_tpu_torch.utils import torch_import as ti
     from tpat_tpu_torch.utils.weights import load_pth
@@ -107,13 +110,25 @@ def main(args):
         model.load_state_dict(sd, strict=True)
 
     # AudioMAE takes (B, 1, T, F), AST (B, 1, F, T) (ast_models.py:434-436)
-    if ast_family:
+    frontend = None
+    if args.device_frontend:
+        frontend = FrontendConfig(
+            num_mel_bins=cfg.num_mel_bins,
+            target_length=cfg.target_length,
+            norm_mean=preset.norm_mean if preset else -6.6268077,
+            norm_std=preset.norm_std if preset else 5.358466,
+        )
+        fb = frontend.fbank_cfg
+        shape = (batches[0], args.num_samples or (
+            fb.window_size + (cfg.target_length - 1) * fb.window_shift))
+    elif ast_family:
         shape = (batches[0], 1, cfg.num_mel_bins, cfg.target_length)
     else:
         shape = (batches[0], 1, cfg.target_length, cfg.num_mel_bins)
     out = serving.export_forward(
         model, shape, args.out_dir,
         batch_sizes=batches if len(batches) > 1 else None,
+        frontend=frontend, ast_orientation=ast_family,
     )
     desc = shape if len(batches) == 1 else (tuple(batches),) + shape[1:]
     print(f"serving artifact written to {out} (input {desc})")

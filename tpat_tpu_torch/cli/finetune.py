@@ -33,12 +33,20 @@ feeds it (``cli/run_ast.py`` is the AST CLI with AST's orientation).
 eval; ``--drop_token_blk_idx`` with ``--retain_min``/``--retain_max`` runs
 the intensity-band ablation in ``--eval`` (at keep 1.0).
 
+``--eval --flag_extract_features true --extract_features_path feats``
+writes each eval batch's features (``mel``, ``block-{i}.attn_score``,
+``block-{i}.topk_idx``, ``labels``) as ``feats/{key}.{batch:04d}.pth``
+(``utils/features.py``) for ``python -m
+tpat_tpu_torch.analysis.extract_stats``; the directory must not exist.
+``--device_frontend true``: the loader ships raw waveforms and the fbank,
+SpecAug, normalisation and noise run on the device at the head of each
+step and eval forward (``ops/frontend.py``).
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, each naming its ROADMAP item: ``--flag_extract_features``
-(A7, the feature writer), ``--device_frontend`` (A8), ``--device_dataset
-true`` (A10; 'auto' means the host loader), and ``--model_axis`` > 1 or
-more than one process (A11).
+raises.  Refused, each naming its ROADMAP item: ``--device_dataset true``
+(A10; 'auto' means the host loader), and ``--model_axis`` > 1 or more than
+one process (A11).
 """
 
 from __future__ import annotations
@@ -57,14 +65,18 @@ import torch
 
 from tpat_tpu_torch import config as cfg_lib
 from tpat_tpu_torch.cli import card_device, str2bool, world_size
-from tpat_tpu_torch.data.datasets import AudiosetDataset, VoxCeleb1Dataset
+from tpat_tpu_torch.data.datasets import (
+    AudiosetDataset, VoxCeleb1Dataset, make_name_dict,
+)
 from tpat_tpu_torch.data.loader import DataLoader
 from tpat_tpu_torch.data.sampler import EpochShardSampler
 from tpat_tpu_torch.engine import evaluate as eval_lib
 from tpat_tpu_torch.engine.train import TrainModule
 from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.ops.frontend import make_preprocess
 from tpat_tpu_torch.utils import checkpoint as ckpt_lib
 from tpat_tpu_torch.utils import torch_import as ti
+from tpat_tpu_torch.utils.features import FeatureWriter
 from tpat_tpu_torch.utils.logging import profiler_trace
 from tpat_tpu_torch.utils.weights import load_pth, state_dict_of
 
@@ -121,8 +133,9 @@ def get_args_parser():
     p.add_argument("--target_length", type=int, default=None,
                    help="override the preset target length (testing)")
     p.add_argument("--device_frontend", type=str2bool, default=False,
-                   help="fbank and SpecAug on the device: not ported "
-                        "(ROADMAP A8)")
+                   help="datasets emit raw waveforms; the fbank, SpecAug, "
+                        "normalisation and noise run batched on the device "
+                        "(ops/frontend.py)")
     p.add_argument("--device_dataset", default="auto",
                    choices=["auto", "true", "false"],
                    help="a device-resident dataset cache: not ported "
@@ -195,9 +208,6 @@ def refuse_unported(args):
     """Raise for a flag whose feature the port does not have yet, naming the
     ROADMAP item that brings it."""
     refused = [
-        (args.flag_extract_features,
-         "--flag_extract_features (the FeatureWriter)", "A7"),
-        (args.device_frontend, "--device_frontend", "A8"),
         (args.device_dataset == "true",
          "--device_dataset true (the device dataset cache)", "A10"),
         (args.model_axis > 1, "--model_axis > 1 (tensor parallelism)", "A11"),
@@ -234,22 +244,27 @@ def build_everything(args, device):
         gelu_impl=args.gelu_impl,
     )
 
+    wf = bool(args.device_frontend)
     if args.dataset == "voxceleb1":
         ds_train = VoxCeleb1Dataset(
-            args.voxceleb1_root, "train", data_cfg, lr_pad=True, seed=args.seed
+            args.voxceleb1_root, "train", data_cfg, lr_pad=True, seed=args.seed,
+            return_waveform=wf,
         )
-        ds_val = VoxCeleb1Dataset(args.voxceleb1_root, "test", data_cfg)
+        ds_val = VoxCeleb1Dataset(args.voxceleb1_root, "test", data_cfg,
+                                  return_waveform=wf)
     else:
         ds_train = (
             AudiosetDataset(
                 args.data_train, data_cfg, args.label_csv, train=True,
                 roll_mag_aug=args.roll_mag_aug, seed=args.seed,
+                return_waveform=wf,
             )
             if args.data_train
             else None
         )
         ds_val = AudiosetDataset(
-            args.data_eval, data_cfg, args.label_csv, train=False
+            args.data_eval, data_cfg, args.label_csv, train=False,
+            return_waveform=wf,
         )
     loader_train = None
     if ds_train is not None:
@@ -289,6 +304,7 @@ def build_everything(args, device):
         model_cfg, train_cfg, data_cfg.loss_type,
         iters_per_epoch=len(loader_train) if loader_train else 1,
         device=device, custom_rank=args.custom_rank,
+        preprocess=make_preprocess(data_cfg) if wf else None,
     )
     return model_cfg, data_cfg, module, loader_train, loader_val
 
@@ -338,29 +354,42 @@ def initial_state_dict(args, model_cfg) -> Dict[str, torch.Tensor]:
     return model.state_dict()
 
 
-def _eval_once(args, model, loader_val, device,
-               intensity_band=None) -> Dict[str, float]:
+def _eval_once(args, model, module, loader_val, device, feature_writer=None,
+               index_to_name=None, intensity_band=None) -> Dict[str, float]:
     """One eval pass; like the reference, which sets use_custom_rank
     model-wide (main_finetune.py:448-450), the custom rank applies to every
     single-label eval."""
     batches = ((x, y) for x, y, _ in loader_val)
     if args.dataset == "audioset":
         return eval_lib.evaluate_multilabel(
-            model, batches, args.batch_size, device
+            model, batches, args.batch_size, device,
+            feature_writer=feature_writer, preprocess=module.preprocess,
         )
     return eval_lib.evaluate_classification(
         model, batches, args.batch_size, device,
+        feature_writer=feature_writer, index_to_name=index_to_name,
         custom_rank=args.custom_rank, intensity_band=intensity_band,
+        preprocess=module.preprocess,
     )
 
 
-def run_eval(args, model, loader_val, device) -> Dict[str, float]:
+def run_eval(args, model, module, loader_val, device) -> Dict[str, float]:
+    writer = index_to_name = None
+    if args.flag_extract_features:
+        # exist_ok=False (main_finetune.py:494): an earlier run's batch files
+        # would be globbed into the analysis with the new ones
+        Path(args.extract_features_path).mkdir(parents=True, exist_ok=False)
+        writer = FeatureWriter(args.extract_features_path)
+        if args.label_csv:
+            index_to_name = make_name_dict(args.label_csv)
     band = None
     if args.drop_token_blk_idx is not None:
         # the reference asserts eval at keep 1.0 (main_finetune.py:336)
         assert args.base_keep_rate == 1.0, "band ablation needs keep 1.0"
         band = (args.retain_min, args.retain_max, args.drop_token_blk_idx)
-    stats = _eval_once(args, model, loader_val, device, intensity_band=band)
+    stats = _eval_once(args, model, module, loader_val, device,
+                       feature_writer=writer, index_to_name=index_to_name,
+                       intensity_band=band)
     metric = "mAP" if args.dataset == "audioset" else "acc1"
     print(f"{metric}: {stats[metric]:.4f}")
     if args.result_path:
@@ -413,7 +442,7 @@ def main(args, device="cuda") -> Optional[Dict]:
     if args.eval:
         model = AudioViT(model_cfg, device=device)
         model.load_state_dict(sd, strict=True)
-        return run_eval(args, model, loader_val, device)
+        return run_eval(args, model, module, loader_val, device)
 
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -477,7 +506,8 @@ def main(args, device="cuda") -> Optional[Dict]:
                 state, batches, epoch, log_every=20
             )
         if epoch >= args.first_eval_ep:
-            test_stats = _eval_once(args, state.model, loader_val, device)
+            test_stats = _eval_once(args, state.model, module, loader_val,
+                                    device)
         else:
             test_stats = {metric: -1.0}
         score = test_stats[metric]

@@ -33,11 +33,17 @@ speechcommands with ``--data-eval`` also ``eval_result.csv`` (validation
 and test accuracy of the best model).  ``--eval`` scores
 ``models/best_audio_model`` and writes ``--eval_result_path``.
 
+``--eval --flag_extract_features true --extract_features_path feats``
+writes each eval batch's features as ``feats/{key}.{batch:04d}.pth``
+(``utils/features.py``; the directory must not exist).
+``--device_frontend true``: the loader ships raw waveforms, and the fbank,
+SpecAug, normalisation and noise run on the device, then the transpose to
+AST's orientation (``ops/frontend.py``).
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, each naming its ROADMAP item: ``--flag_extract_features``
-(A7), ``--device_frontend true`` (A8), ``--device_dataset true`` (A10;
-'auto' means the host loader) and more than one process (A11).
+raises.  Refused, each naming its ROADMAP item: ``--device_dataset true``
+(A10; 'auto' means the host loader) and more than one process (A11).
 """
 
 from __future__ import annotations
@@ -61,8 +67,10 @@ from tpat_tpu_torch.data.sampler import EpochShardSampler
 from tpat_tpu_torch.engine import evaluate as eval_lib
 from tpat_tpu_torch.engine.train import TrainModule
 from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.ops.frontend import make_preprocess
 from tpat_tpu_torch.utils import checkpoint as ckpt_lib
 from tpat_tpu_torch.utils import torch_import as ti
+from tpat_tpu_torch.utils.features import FeatureWriter
 from tpat_tpu_torch.utils.weights import load_pth
 
 # SpecAug strengths per dataset (run.py:150-158); --freqm/--timem override
@@ -139,7 +147,8 @@ def get_parser():
     p.add_argument("--gelu_impl", default="auto",
                    choices=["auto", "exact", "poly"])
     p.add_argument("--device_frontend", type=str2bool, default=False,
-                   help="fbank on the device: not ported (ROADMAP A8)")
+                   help="compute the Kaldi fbank on the device (the loader "
+                        "emits raw waveforms)")
     p.add_argument("--device_dataset", default="auto",
                    choices=["auto", "true", "false"],
                    help="a device-resident dataset cache: not ported "
@@ -152,9 +161,6 @@ def refuse_unported(args):
     """Raise for a flag whose feature the port does not have yet, naming the
     ROADMAP item that brings it."""
     refused = [
-        (args.flag_extract_features,
-         "--flag_extract_features (the FeatureWriter)", "A7"),
-        (args.device_frontend, "--device_frontend", "A8"),
         (args.device_dataset == "true",
          "--device_dataset true (the device dataset cache)", "A10"),
         (world_size() > 1, "more than one process (data parallelism)", "A11"),
@@ -244,27 +250,36 @@ def initial_state_dict(args, model_cfg):
     return model.state_dict()
 
 
-def ast_batches(loader):
+def ast_batches(loader, waveform: bool = False):
     """The loader's (B, 1, T, F) batches in AST's (B, 1, F, T) orientation
-    (``ast_models.py:434-436``)."""
+    (``ast_models.py:434-436``); waveform batches as they come (the
+    preprocess transposes after the device frontend)."""
     for x, y, _ids in loader:
-        yield np.ascontiguousarray(x.transpose(0, 1, 3, 2)), y
+        yield (x if waveform else np.ascontiguousarray(x.transpose(0, 1, 3, 2))), y
 
 
-def _score(args, model, loader, device, metrics=None, **ablations) -> float:
-    batches = ast_batches(loader)
+def _preprocess(args, data_cfg):
+    return (make_preprocess(data_cfg, ast_orientation=True)
+            if args.device_frontend else None)
+
+
+def _score(args, model, loader, device, data_cfg, metrics=None,
+           **kw) -> float:
+    batches = ast_batches(loader, bool(args.device_frontend))
+    kw["preprocess"] = _preprocess(args, data_cfg)
     if (metrics or args.metrics) == "acc":
         stats = eval_lib.evaluate_classification(
-            model, batches, args.batch_size, device, **ablations)
+            model, batches, args.batch_size, device, **kw)
         return stats["acc1"] / 100.0
     stats = eval_lib.evaluate_multilabel(
-        model, batches, args.batch_size, device, **ablations)
+        model, batches, args.batch_size, device, **kw)
     return stats["mAP"]
 
 
 def _eval_loader(args, path, data_cfg):
     return DataLoader(
-        AudiosetDataset(path, data_cfg, args.label_csv, train=False),
+        AudiosetDataset(path, data_cfg, args.label_csv, train=False,
+                        return_waveform=bool(args.device_frontend)),
         args.batch_size, shuffle=False, num_workers=args.num_workers,
     )
 
@@ -293,8 +308,15 @@ def run_eval(args, model_cfg, data_cfg, loader_val, device) -> float:
     band = None
     if args.drop_token_blk_idx is not None:
         band = (args.retain_min, args.retain_max, args.drop_token_blk_idx)
-    score = _score(args, model, loader, device, custom_rank=args.custom_rank,
-                   intensity_band=band)
+    writer = None
+    if args.flag_extract_features:
+        # exist_ok=False (run.py:261): an earlier run's batch files would be
+        # globbed into the analysis with the new ones
+        os.makedirs(args.extract_features_path, exist_ok=False)
+        writer = FeatureWriter(args.extract_features_path)
+    score = _score(args, model, loader, device, data_cfg,
+                   custom_rank=args.custom_rank, intensity_band=band,
+                   feature_writer=writer)
     print(f"{args.metrics}: {score:.6f}")
     np.savetxt(os.path.join(args.exp_dir, args.eval_result_path), [-1, score])
     return score
@@ -319,7 +341,8 @@ def main(args, device="cuda") -> float:
 
     write_args_yaml(os.path.join(args.exp_dir, "args.yaml"), vars(args))
     ds_train = AudiosetDataset(args.data_train, data_cfg, args.label_csv,
-                               train=True, seed=args.seed)
+                               train=True, seed=args.seed,
+                               return_waveform=bool(args.device_frontend))
     loader_train = DataLoader(
         ds_train, args.batch_size,
         sampler=EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed),
@@ -347,6 +370,7 @@ def main(args, device="cuda") -> float:
         model_cfg, train_cfg, data_cfg.loss_type,
         iters_per_epoch=len(loader_train), device=device,
         custom_rank=args.custom_rank,  # run.py:204-206 sets it model-wide
+        preprocess=_preprocess(args, data_cfg),
     )
     state = module.load(initial_state_dict(args, model_cfg), seed=args.seed)
     models_dir = os.path.join(args.exp_dir, "models")
@@ -366,10 +390,10 @@ def main(args, device="cuda") -> float:
             loader_train.dataset.freqm = 0
             loader_train.dataset.timem = 0
         state, tstats = module.train_epoch(
-            state, ast_batches(loader_train), epoch,
+            state, ast_batches(loader_train, bool(args.device_frontend)), epoch,
             log_every=args.n_print_steps,
         )
-        score = _score(args, state.model, loader_val, device)
+        score = _score(args, state.model, loader_val, device, data_cfg)
         print(f"epoch {epoch}: train_loss={tstats['loss']:.4f} score={score:.6f}")
         result[epoch - 1] = [epoch, score, tstats["loss"], 0.0]
         np.savetxt(os.path.join(args.exp_dir, "result.csv"), result,
@@ -392,9 +416,9 @@ def main(args, device="cuda") -> float:
     # too, eval_result.csv = [val acc, 0, test acc, 0] (run.py:230-255)
     if args.dataset == "speechcommands" and args.data_eval:
         model = _load_model(best, model_cfg, device)
-        val = _score(args, model, loader_val, device, metrics="acc")
+        val = _score(args, model, loader_val, device, data_cfg, metrics="acc")
         test = _score(args, model, _eval_loader(args, args.data_eval, data_cfg),
-                      device, metrics="acc")
+                      device, data_cfg, metrics="acc")
         np.savetxt(os.path.join(args.exp_dir, "eval_result.csv"),
                    [val, 0.0, test, 0.0])
         print(f"valid acc {val:.6f}, test acc {test:.6f}")

@@ -11,9 +11,14 @@
 
 Each item draws from a generator seeded by (seed, epoch, index), so the
 same manifest, seed and epoch give the same items as the JAX package's.
-Decoding and the fbank run on the host.  The waveform mode
-(``return_waveform``), which feeds the device frontend, waits for ROADMAP
-A8 and is refused.
+Decoding and the fbank run on the host.  In the waveform mode
+(``return_waveform``, the ``--device_frontend`` path) an item is the
+centred (and roll-magnitude or mixup augmented) clip at ``num_samples``,
+and the fbank, SpecAug, normalisation and noise run on the device
+(``ops/frontend.py``).  A short clip gets a NaN tail; VoxCeleb's random
+left pad becomes a NaN head of ``pad_left`` x 160 samples.  The draws come
+from the same generator stream as the mel path's, so a clip's draws equal
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -52,12 +57,10 @@ def _host_fbank(wav: np.ndarray, sr: int, num_mel_bins: int) -> np.ndarray:
     )
 
 
-def _refuse_waveform_mode(return_waveform: bool):
-    if return_waveform:
-        raise NotImplementedError(
-            "return_waveform (raw audio for the device frontend) is not "
-            "ported yet: ROADMAP A8"
-        )
+def _default_num_samples(data_cfg: DataConfig) -> int:
+    """The samples that ``target_length`` snip-edges frames cover at 16 kHz:
+    (target_length - 1) * 160 + 400."""
+    return (data_cfg.target_length - 1) * 160 + 400
 
 
 def make_index_dict(label_csv: str) -> Dict[str, int]:
@@ -88,12 +91,16 @@ class AudiosetDataset:
         roll_mag_aug: bool = False,
         seed: int = 0,
         return_waveform: bool = False,
+        num_samples: Optional[int] = None,
         skip_norm: bool = False,
     ):
-        _refuse_waveform_mode(return_waveform)
         with open(manifest_json) as f:
             self.data: List[dict] = json.load(f)["data"]
         self.cfg = data_cfg
+        self.return_waveform = return_waveform
+        if return_waveform and num_samples is None:
+            num_samples = _default_num_samples(data_cfg)
+        self.num_samples = num_samples
         self.train = train
         self.index_dict = make_index_dict(label_csv)
         self.label_num = len(self.index_dict)
@@ -134,6 +141,23 @@ class AudiosetDataset:
         mel = fb.pad_or_crop(mel, self.cfg.target_length)
         return mel, lam
 
+    def _fixed_waveform(self, path: str, rng, path2: Optional[str] = None):
+        """The clip (mixed with ``path2``'s) at ``num_samples``: cropped, or
+        padded with a NaN tail that the device frontend reads as the true
+        length.  Returns (waveform, lam)."""
+        w1, _ = self._load_centered(path, rng)
+        lam = 0.0
+        if path2 is not None:
+            w2, _ = self._load_centered(path2, rng)
+            w1, lam = augment.mixup_waveforms(w1, w2, rng)
+        wav = w1.reshape(-1)
+        n = self.num_samples
+        if len(wav) < n:
+            wav = np.pad(wav, (0, n - len(wav)), constant_values=np.nan)
+        else:
+            wav = wav[:n]
+        return wav.astype(np.float32), lam
+
     def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray, str]:
         # a generator local to this call: the threaded loader runs
         # __getitem__ concurrently on one dataset object
@@ -146,6 +170,19 @@ class AudiosetDataset:
             if do_mixup
             else None
         )
+        if self.return_waveform:
+            wav, lam = self._fixed_waveform(
+                datum["wav"], rng, partner["wav"] if partner else None
+            )
+            if partner is not None:
+                for s in datum["labels"].split(","):
+                    labels[self.index_dict[s.strip()]] += lam
+                for s in partner["labels"].split(","):
+                    labels[self.index_dict[s.strip()]] += 1.0 - lam
+            else:
+                for s in datum["labels"].split(","):
+                    labels[self.index_dict[s.strip()]] = 1.0
+            return wav, labels, datum["wav"]
         if do_mixup:
             mel, lam = self._wav2fbank(datum["wav"], rng, partner["wav"])
             for s in datum["labels"].split(","):
@@ -184,12 +221,16 @@ class VoxCeleb1Dataset:
         seed: int = 0,
         skip_norm: bool = False,
         return_waveform: bool = False,
+        num_samples: Optional[int] = None,
     ):
-        _refuse_waveform_mode(return_waveform)
         if subset not in ("train", "test"):
             raise ValueError(f"subset must be 'train' or 'test', got {subset!r}")
         self.root = root
         self.cfg = data_cfg
+        self.return_waveform = return_waveform
+        if return_waveform and num_samples is None:
+            num_samples = _default_num_samples(data_cfg)
+        self.num_samples = num_samples
         self.train = subset == "train"
         self.lr_pad = lr_pad and self.train
         self.freqm = data_cfg.freqm if self.train else 0
@@ -229,6 +270,8 @@ class VoxCeleb1Dataset:
         wav = wav - wav.mean()
         if self.roll_mag:
             wav = augment.roll_mag_aug(wav, rng)
+        if self.return_waveform:
+            return self._fixed_waveform(wav, sr, rng), label, rel
         mel = _host_fbank(wav[0], sr, self.cfg.num_mel_bins)
         pad_left = 0
         deficit = self.cfg.target_length - mel.shape[0]
@@ -242,3 +285,24 @@ class VoxCeleb1Dataset:
         if self.noise:
             mel = augment.noise_aug(mel, rng)
         return mel[None].astype(np.float32), label, rel
+
+    def _fixed_waveform(self, wav: np.ndarray, sr: int, rng) -> np.ndarray:
+        """The clip at ``num_samples``: cropped, or after a NaN head of
+        ``pad_left`` x 160 samples (the mel path's lr_pad draw, in frames)
+        and before a NaN tail."""
+        if sr != 16000:
+            raise ValueError(f"the waveform mode assumes 16 kHz, got {sr}")
+        flat = wav.reshape(-1)
+        n, shift, window = self.num_samples, 160, 400
+        out = np.full(n, np.nan, dtype=np.float32)
+        if len(flat) >= n:
+            out[:] = flat[:n]
+            return out
+        real_frames = 1 + (len(flat) - window) // shift if len(flat) >= window else 0
+        deficit = self.cfg.target_length - real_frames
+        pad_left = (int(rng.integers(0, deficit + 1))
+                    if self.lr_pad and deficit > 0 else 0)
+        start = pad_left * shift
+        m = min(len(flat), n - start)
+        out[start:start + m] = flat[:m]
+        return out

@@ -14,9 +14,11 @@ the intensity band through ``forward_masked`` with host-double kept-count
 tables, which returns each sample's kept count, and a sample the band
 emptied is left out of the metrics.
 
-Not ported: the multi-process gather (``allgather_rows``, ROADMAP A11) and
-the device frontend's ``preprocess`` (A8).  The feature-writer hook is a
-callback; the ``FeatureWriter`` itself waits for A7.
+``preprocess`` (the device frontend) runs at the head of every eval
+forward with ``specaug=False, train=False``, so the ``mel`` feature that
+``feature_writer`` (``utils.features.FeatureWriter``, or any callback)
+saves is the frontend's output.  Not ported: the multi-process gather
+(``allgather_rows``, ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -31,11 +33,7 @@ from tpat_tpu_torch.engine import schedules
 from tpat_tpu_torch.models.vit import AudioViT
 
 
-def _refuse_unported(preprocess=None, allgather=False):
-    if preprocess is not None:
-        raise NotImplementedError(
-            "the device frontend (preprocess) is not ported yet: ROADMAP A8"
-        )
+def _refuse_unported(allgather=False):
     if allgather:
         raise NotImplementedError(
             "the multi-process eval gather (allgather_rows) is not ported "
@@ -54,7 +52,12 @@ def make_eval_step(
     ``extract_features``, or (logits, kept counts) with ``intensity_band``
     = (retain_min, retain_max, block), which combines with neither
     features nor ``custom_rank`` (``evaluate.py:72-110``)."""
-    _refuse_unported(preprocess)
+
+    def pre(x: torch.Tensor) -> torch.Tensor:
+        if preprocess is None:
+            return x
+        return preprocess(x, None, specaug=False, train=False)
+
     if intensity_band is not None:
         if extract_features or custom_rank is not None:
             raise ValueError(
@@ -69,7 +72,7 @@ def make_eval_step(
             model.eval()
             with torch.no_grad():
                 return model.forward_masked(
-                    x, cfg.keep_rates, num_left_tables=tables.to(x.device),
+                    pre(x), cfg.keep_rates, num_left_tables=tables.to(x.device),
                     intensity_band=tuple(intensity_band))
 
         return band_step
@@ -77,7 +80,7 @@ def make_eval_step(
     def step(x: torch.Tensor):
         model.eval()
         with torch.no_grad():
-            return model(x, extract_features=extract_features,
+            return model(pre(x), extract_features=extract_features,
                          custom_rank=custom_rank)
 
     return step
@@ -157,11 +160,11 @@ def evaluate_classification(
 ) -> Dict[str, float]:
     """Single-label eval: acc1, acc5 and the CE loss on argmax targets.
     ``device`` defaults to the model's."""
-    _refuse_unported(preprocess, allgather)
+    _refuse_unported(allgather)
     device = device or next(model.parameters()).device
     step = make_eval_step(model, extract_features=feature_writer is not None,
                           custom_rank=custom_rank,
-                          intensity_band=intensity_band)
+                          intensity_band=intensity_band, preprocess=preprocess)
     logits, targets, sizes = _run_batches(
         step, batches, batch_size, device, feature_writer, index_to_name,
         band_mode=intensity_band is not None,
@@ -198,11 +201,11 @@ def evaluate_multilabel(
     """Multilabel eval: the mean over classes of the average precision.
     The JAX function takes no ablation; ``cli/run_ast.py --eval`` passes
     both, so here they run as in ``evaluate_classification``."""
-    _refuse_unported(preprocess, allgather)
+    _refuse_unported(allgather)
     device = device or next(model.parameters()).device
     step = make_eval_step(model, extract_features=feature_writer is not None,
                           custom_rank=custom_rank,
-                          intensity_band=intensity_band)
+                          intensity_band=intensity_band, preprocess=preprocess)
     logits, targets, _sizes = _run_batches(
         step, batches, batch_size, device, feature_writer,
         band_mode=intensity_band is not None,

@@ -12,11 +12,16 @@
   log points and at the epoch's end, where a non-finite loss aborts with
   ``FloatingPointError``.
 
-Drop-path and 2D masking draw from the state's ``torch.Generator`` on the
-model's device.  ``custom_rank`` (the custom-rank ablation) reaches the
-static forwards; an anneal epoch refuses it, as in JAX.  The JAX package's
-compiled-step memo, its mesh and tensor parallelism and the device frontend
-(``preprocess``) have no counterpart here.
+Drop-path, dropout and 2D masking draw from the state's ``torch.Generator``
+on the model's device.  ``custom_rank`` (the custom-rank ablation) reaches
+the static forwards; an anneal epoch refuses it, as in JAX.  ``preprocess``
+(the device frontend of ``--device_frontend``, ``ops/frontend.py``) runs at
+the head of every step, ``preprocess(x, generator, specaug, train=True)``,
+with SpecAug only in the dense phase (the reference switches the
+augmentations off once the shrink starts); with a preprocess, the hybrid
+anneal's t = 0 point stays a hybrid step instead of taking the dense one,
+which would turn SpecAug back on.  The JAX package's compiled-step memo and
+its mesh and tensor parallelism have no counterpart here.
 """
 
 from __future__ import annotations
@@ -87,6 +92,9 @@ class TrainModule:
     device: Union[str, torch.device] = "cuda"
     # the custom-rank ablation ('mean' or 'std'): static phases only
     custom_rank: Optional[str] = None
+    # on-device preprocessing of each batch:
+    # fn(x, generator, specaug: bool, train: bool) -> model input
+    preprocess: Optional[Callable] = None
 
     def __post_init__(self):
         tc = self.train_cfg
@@ -180,6 +188,9 @@ class TrainModule:
         state.model.train()
         x = torch.as_tensor(x, device=self.device)
         y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
+        if self.preprocess is not None:
+            x = self.preprocess(x, state.generator, specaug=phase == "dense",
+                                train=True)
         logits = self._forward(
             state, x, phase, mask_prob, static_rates, keep_rates, num_left
         )
@@ -312,9 +323,10 @@ class TrainModule:
                         state, acc, x, y, "anneal", keep_rates=rates,
                         num_left=num_left,
                     )
-                elif rates == all_ones:
+                elif rates == all_ones and self.preprocess is None:
                     # the cosine's t=0 point: the refine is the identity, so
-                    # the dense step (without 2D masking) is the same math
+                    # the dense step (without 2D masking) is the same math;
+                    # not with a preprocess, whose dense step runs SpecAug
                     self.train_step(state, acc, x, y, "dense")
                 else:
                     self.train_step(

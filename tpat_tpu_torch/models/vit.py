@@ -24,18 +24,26 @@ the compute dtype, and the head runs in f32.  With ``use_fused_layernorm``
 every block's ``norm1`` and ``norm2`` is a ``FusedLayerNorm`` (the LayerNorm
 kernels); ``fc_norm`` stays the plain ``LayerNorm``, as in the JAX model.
 
-Training randomness (drop-path, 2D time/frequency masking) draws from the
-``torch.Generator`` the caller passes, never from the global RNG.
+Training randomness (drop-path, dropout, 2D time/frequency masking) draws
+from the ``torch.Generator`` the caller passes, never from the global RNG.
+Dropout (``drop_rate``) sits where the JAX model has it (``vit.py:125,
+128, 253, 494``): after the embedding (``pos_drop``), after the attention's
+``proj``, and after the MLP's GELU and ``fc2``; ``attn_drop_rate`` stays
+refused by the config, as in JAX.  A block draws all its keep masks before
+it computes (``Block.draw``), in forward order, and takes them as inputs,
+so that ``remat`` can recompute a block: ``torch.utils.checkpoint`` restores
+the global RNG state on recompute but not an explicit generator.  ``remat``
+checkpoints each block of the static forward in training, as the JAX model
+wraps ``Block.__call__`` in ``nn.remat`` (``vit.py:516-519``); the masked and
+hybrid forwards are not rematerialised, in JAX either.
 
 Ported: both flavours, AudioMAE (1 extra token, patch-mean importance,
 gap_fcnorm pooling) and AST (CLS and distillation tokens, CLS-row
-importance, a final norm, cls_dist pooling), with drop-path and 2D masking
-(AudioMAE only, as in JAX) in training; the custom-rank ablation
+importance, a final norm, cls_dist pooling), with drop-path, dropout and 2D
+masking (AudioMAE only, as in JAX) in training; the custom-rank ablation
 (``custom_rank``: per-patch mel mean or std in place of the attention
-importance) and ``forward_masked``'s intensity band with its host-double
-kept-count tables.  Not yet ported, and refused with an error: dropout
-(``drop_rate`` > 0 in training; every reference config has 0) and
-``remat``.
+importance), ``forward_masked``'s intensity band with its host-double
+kept-count tables, and ``remat``.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tpat_tpu_torch.config import ViTConfig, compose_kept_counts
@@ -85,11 +94,30 @@ def drop_path(
     by 1 - rate, or zeroed.  Off in eval and at rate 0."""
     if not training or rate == 0.0:
         return x
-    keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    u = torch.rand(shape, generator=_need_generator(generator, "drop-path"),
-                   device=x.device)
-    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+    return _apply_keep(x, _keep_mask(shape, rate, generator, x.device,
+                                     "drop-path"), rate)
+
+
+def _keep_mask(
+    shape, rate: float, generator: Optional[torch.Generator], device, what: str,
+) -> Optional[torch.Tensor]:
+    """A keep mask of ``shape``, True with probability 1 - rate, drawn from
+    ``generator``; None at rate 0 (nothing drawn)."""
+    if rate == 0.0:
+        return None
+    u = torch.rand(shape, generator=_need_generator(generator, what),
+                   device=device)
+    return u < 1.0 - rate
+
+
+def _apply_keep(x: torch.Tensor, keep: Optional[torch.Tensor],
+                rate: float) -> torch.Tensor:
+    """x / (1 - rate) where ``keep``, else 0 (flax's ``nn.Dropout`` and
+    timm's DropPath); x itself where ``keep`` is None."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Linear(nn.Linear):
@@ -162,8 +190,10 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2.  Exact erf GELU, or the polynomial GELU when the
-    activation is bf16 under ``gelu_impl='auto'`` (``vit.py:97-129``)."""
+    """fc1 -> GELU -> dropout -> fc2 -> dropout.  Exact erf GELU, or the
+    polynomial GELU when the activation is bf16 under ``gelu_impl='auto'``
+    (``vit.py:97-129``).  The dropouts apply the keep masks the caller
+    passes (``Block.draw``)."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -174,11 +204,14 @@ class Mlp(nn.Module):
         self.use_poly = cfg.gelu_impl == "poly" or (
             cfg.gelu_impl == "auto" and dt == torch.bfloat16
         )
+        self.drop_rate = cfg.drop_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep1: Optional[torch.Tensor] = None,
+                keep2: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.fc1(x)
         x = gelu_poly(x) if self.use_poly else F.gelu(x)
-        return self.fc2(x)
+        x = _apply_keep(x, keep1, self.drop_rate)
+        return _apply_keep(self.fc2(x), keep2, self.drop_rate)
 
 
 class PrunedAttention(nn.Module):
@@ -193,7 +226,8 @@ class PrunedAttention(nn.Module):
     ``prefix_len`` (a host int) the caller states that the mask keeps the
     first ``prefix_len`` patch tokens of every sample, and the kernel path
     takes ``fused_qkv_attention_prefix`` instead of the masked plain
-    attention (``vit.py:217-247``)."""
+    attention (``vit.py:217-247``).  ``proj_keep`` is the dropout mask of
+    ``proj``'s output."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -209,6 +243,7 @@ class PrunedAttention(nn.Module):
         need_scores: bool,
         token_mask: Optional[torch.Tensor] = None,
         prefix_len: Optional[int] = None,
+        proj_keep: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
         e = cfg.num_extra_tokens
@@ -233,7 +268,7 @@ class PrunedAttention(nn.Module):
                 token_mask=token_mask, need_scores=need_scores,
             )
             out = out.transpose(1, 2).reshape(b, n, c3 // 3)
-        return self.proj(out), scores
+        return _apply_keep(self.proj(out), proj_keep, cfg.drop_rate), scores
 
 
 class Block(nn.Module):
@@ -245,15 +280,47 @@ class Block(nn.Module):
         dt = compute_dtype(cfg)
         self.num_extra_tokens = cfg.num_extra_tokens
         self.drop_path_rate = drop_path_rate
+        self.drop_rate = cfg.drop_rate
+        self.remat = cfg.remat
         norm = FusedLayerNorm if cfg.use_fused_layernorm else LayerNorm
         self.norm1 = norm(cfg.embed_dim, cfg.layer_norm_eps, dt)
         self.attn = PrunedAttention(cfg)
         self.norm2 = norm(cfg.embed_dim, cfg.layer_norm_eps, dt)
         self.mlp = Mlp(cfg)
 
-    def _residual(self, x, branch, generator):
-        return x + drop_path(branch, self.drop_path_rate, self.training,
-                             generator)
+    def draw(
+        self, batch: int, n_attn: int, n_mlp: int, device,
+        generator: Optional[torch.Generator],
+    ) -> Dict[str, Optional[torch.Tensor]]:
+        """The block's keep masks, drawn in forward order: the attention
+        proj's dropout ((B, n_attn, D)), the attention branch's drop-path
+        ((B, 1, 1)), the MLP's two dropouts ((B, n_mlp, hidden) and (B,
+        n_mlp, D)) and the MLP branch's drop-path; None where the rate is 0
+        and all None in eval."""
+        if not self.training:
+            return dict.fromkeys(("proj", "path1", "fc1", "fc2", "path2"))
+        d = self.mlp.fc2.out_features
+        hidden = self.mlp.fc1.out_features
+        dr, pr = self.drop_rate, self.drop_path_rate
+
+        def mask(shape, rate, what):
+            return _keep_mask(shape, rate, generator, device, what)
+
+        return {
+            "proj": mask((batch, n_attn, d), dr, "dropout"),
+            "path1": mask((batch, 1, 1), pr, "drop-path"),
+            "fc1": mask((batch, n_mlp, hidden), dr, "dropout"),
+            "fc2": mask((batch, n_mlp, d), dr, "dropout"),
+            "path2": mask((batch, 1, 1), pr, "drop-path"),
+        }
+
+    def _attention(self, x, noise, **kw):
+        attn_out, scores = self.attn(self.norm1(x), proj_keep=noise["proj"], **kw)
+        return x + _apply_keep(attn_out, noise["path1"], self.drop_path_rate), scores
+
+    def _mlp(self, x, noise):
+        branch = self.mlp(self.norm2(x), noise["fc1"], noise["fc2"])
+        return x + _apply_keep(branch, noise["path2"], self.drop_path_rate)
 
     def forward(
         self, x: torch.Tensor, keep_rate: float, extract_features: bool,
@@ -263,13 +330,28 @@ class Block(nn.Module):
         """Static-shape path (``vit.py:311-348``).  Returns (x, aux); aux may
         hold 'scores' and 'topk_idx'.  ``custom_rank`` ((B, P') per-patch
         values) replaces the attention importance: the attention then runs
-        without scores unless features are extracted."""
+        without scores unless features are extracted.  With ``remat`` in
+        training the block runs under ``torch.utils.checkpoint``, its keep
+        masks drawn before it."""
+        e = self.num_extra_tokens
+        n_mlp = x.shape[1]
+        if keep_rate < 1.0:
+            k = pruning.num_left_tokens(keep_rate, x.shape[1] - e)
+            # the custom-rank gather keeps k rows of the whole sequence
+            n_mlp = k if custom_rank is not None else e + k
+        noise = self.draw(x.shape[0], x.shape[1], n_mlp, x.device, generator)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                self._static, x, keep_rate, extract_features, custom_rank,
+                noise, use_reentrant=False)
+        return self._static(x, keep_rate, extract_features, custom_rank, noise)
+
+    def _static(self, x, keep_rate, extract_features, custom_rank, noise):
         e = self.num_extra_tokens
         p_in = x.shape[1] - e
         prune = keep_rate < 1.0
         need_scores = (prune and custom_rank is None) or extract_features
-        attn_out, scores = self.attn(self.norm1(x), need_scores=need_scores)
-        x = self._residual(x, attn_out, generator)
+        x, scores = self._attention(x, noise, need_scores=need_scores)
         aux: Dict[str, torch.Tensor] = {}
         if extract_features and scores is not None:
             aux["scores"] = scores
@@ -285,7 +367,7 @@ class Block(nn.Module):
                 idx = pruning.topk_select(custom_rank, k)
                 x = pruning.take_rows(x, idx)
             aux["topk_idx"] = idx
-        return self._residual(x, self.mlp(self.norm2(x)), generator), aux
+        return self._mlp(x, noise), aux
 
     def masked_call(
         self,
@@ -315,13 +397,15 @@ class Block(nn.Module):
         states that no block has refined the mask yet, so attention runs
         unmasked; ``prefix_len`` states that the mask is the uniform prefix
         [0, prefix_len).  Returns (x, refined token_mask)."""
-        attn_out, scores = self.attn(
-            self.norm1(x),
+        n = x.shape[1]
+        n_mlp = self.num_extra_tokens + bucket_k if bucket_k is not None else n
+        noise = self.draw(x.shape[0], n, n_mlp, x.device, generator)
+        x, scores = self._attention(
+            x, noise,
             need_scores=keep_rate is not None,
             token_mask=None if mask_is_full else token_mask,
             prefix_len=None if mask_is_full else prefix_len,
         )
-        x = self._residual(x, attn_out, generator)
 
         if keep_rate is not None:
             scores = scores.detach()
@@ -340,8 +424,7 @@ class Block(nn.Module):
             else:
                 token_mask = pruning.masked_refine(scores, token_mask, num_left)
 
-        x = self._residual(x, self.mlp(self.norm2(x)), generator)
-        return x, token_mask
+        return self._mlp(x, noise), token_mask
 
 
 @torch.no_grad()
@@ -360,8 +443,6 @@ def _check_ported(cfg: ViTConfig):
         raise ValueError("num_extra_tokens must be 1 or 2")
     if cfg.pooling not in ("gap_fcnorm", "cls_dist"):
         raise ValueError(f"unknown pooling: {cfg.pooling}")
-    if cfg.remat:
-        raise NotImplementedError("remat (training) is not ported yet")
 
 
 def patch_stats(x: torch.Tensor, patch: int = 16, kind: str = "mean") -> torch.Tensor:
@@ -486,18 +567,30 @@ class AudioViT(nn.Module):
         else:
             trunc(self.pos_embed, 0.02)
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
+    def _pos_drop(self, tokens: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Dropout of the embedded tokens (``pos_drop``) in training."""
+        if not self.training:
+            return tokens
+        keep = _keep_mask(tokens.shape, self.cfg.drop_rate, generator,
+                          tokens.device, "dropout")
+        return _apply_keep(tokens, keep, self.cfg.drop_rate)
+
+    def embed(self, x: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Patchify, prepend CLS (and AST's distillation token), add the
         whole positional table (pos and tokens cast to the token dtype,
-        ``vit.py:563-601``; AudioMAE's 'pre_cls' order gives the same sum)."""
+        ``vit.py:563-601``; AudioMAE's 'pre_cls' order gives the same sum),
+        then ``pos_drop``."""
         tokens = self.patch_embed(x)
         extras = [self.cls_token]
         if self.cfg.num_extra_tokens == 2:
             extras.append(self.dist_token)
         b = tokens.shape[0]
         extras = [t.to(tokens.dtype).expand(b, -1, -1) for t in extras]
-        return (torch.cat([*extras, tokens], dim=1)
-                + self.pos_embed.to(tokens.dtype))
+        tokens = (torch.cat([*extras, tokens], dim=1)
+                  + self.pos_embed.to(tokens.dtype))
+        return self._pos_drop(tokens, generator)
 
     def embed_masked2d(
         self,
@@ -505,12 +598,14 @@ class AudioViT(nn.Module):
         mask_t_prob: float,
         mask_f_prob: float,
         noise: Tuple[torch.Tensor, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Structured 2D time/frequency token masking (``vit.py:691-736``):
         pos is added to the patches, then the ``int(T (1 - p_t))`` time rows
         with the smallest ``noise[0]`` are kept, then the ``int(F (1 - p_f))``
         frequency columns with the smallest ``noise[1]``, tokens staying in
-        that permuted order; the CLS token gets pos row 0."""
+        that permuted order; the CLS token gets pos row 0; then
+        ``pos_drop``."""
         cfg = self.cfg
         if cfg.pos_embed_mode != "pre_cls":
             raise ValueError("2D masking is AudioMAE-only")
@@ -532,7 +627,7 @@ class AudioViT(nn.Module):
         )
         tokens = grid.transpose(1, 2).reshape(b, keep_t * keep_f, d)
         cls = (self.cls_token.to(tokens.dtype) + pos[:, :1]).expand(b, -1, -1)
-        return torch.cat([cls, tokens], dim=1)
+        return self._pos_drop(torch.cat([cls, tokens], dim=1), generator)
 
     def pool_and_head(
         self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None
@@ -555,12 +650,6 @@ class AudioViT(nn.Module):
             feat = patches.float().mean(dim=1).to(x.dtype)
         return self.head(self.fc_norm(feat).float())
 
-    def _check_training(self):
-        if self.training and self.cfg.drop_rate > 0.0:
-            raise NotImplementedError(
-                "dropout is not ported: call .eval(), or set drop_rate to 0"
-            )
-
     def forward(
         self,
         x: torch.Tensor,
@@ -576,17 +665,17 @@ class AudioViT(nn.Module):
 
         keep_rates: per-block floats (len == depth); None uses the config's
         baked rates.  ``mask_t_prob``/``mask_f_prob`` > 0 embed through 2D
-        masking, with noise drawn from ``generator``, which drop-path in
-        training draws from too.  ``custom_rank`` ('mean' or 'std'): the
-        drop blocks keep the patches of largest ``patch_stats`` instead of
-        largest importance; ignored under 2D masking, whose permuted
-        tokens the full-grid ranks do not index (``vit.py:656-668``).
+        masking, with noise drawn from ``generator``, which drop-path and
+        dropout in training draw from too.  ``custom_rank`` ('mean' or
+        'std'): the drop blocks keep the patches of largest ``patch_stats``
+        instead of largest importance; ignored under 2D masking, whose
+        permuted tokens the full-grid ranks do not index
+        (``vit.py:656-668``).
         Returns logits (B, num_classes) f32, or (logits, features) when
         ``extract_features``: 'mel', 'block-{i}.attn_score' and
         'block-{i}.topk_idx'.
         """
         cfg = self.cfg
-        self._check_training()
         if keep_rates is None:
             keep_rates = cfg.keep_rates
         keep_rates = tuple(float(r) for r in keep_rates)
@@ -605,9 +694,10 @@ class AudioViT(nn.Module):
         if masked2d:
             gen = _need_generator(generator, "2D masking")
             noise = mask2d_noise(x.shape[0], cfg, gen, x.device)
-            tokens = self.embed_masked2d(x, mask_t_prob, mask_f_prob, noise)
+            tokens = self.embed_masked2d(x, mask_t_prob, mask_f_prob, noise,
+                                         generator)
         else:
-            tokens = self.embed(x)
+            tokens = self.embed(x, generator)
         for i, blk in enumerate(self.blocks):
             tokens, aux = blk(tokens, keep_rates[i], extract_features, generator,
                               custom_rank=rank)
@@ -652,13 +742,12 @@ class AudioViT(nn.Module):
         if num_left is not None and intensity_band is not None:
             raise ValueError("num_left and intensity_band are exclusive: the "
                              "band makes the kept counts data-dependent")
-        self._check_training()
         band_mask, band_blk = None, -1
         if intensity_band is not None:
             lo, hi, band_blk = intensity_band
             intensity = patch_stats(x, cfg.patch_size, "mean")
             band_mask = (intensity > lo) & (intensity < hi)
-        tokens = self.embed(x)
+        tokens = self.embed(x, generator)
         token_mask = pruning.full_token_mask(x.shape[0], cfg.num_patches, x.device)
         first = min(cfg.drop_loc) if cfg.drop_loc else cfg.depth
         if band_mask is not None:
@@ -697,7 +786,6 @@ class AudioViT(nn.Module):
         first drop block every attention takes the prefix kernel with
         kv_valid = extra + the last drop block's kept count."""
         cfg = self.cfg
-        self._check_training()
         bucket_rates = tuple(float(r) for r in bucket_rates)
         if len(bucket_rates) != cfg.depth:
             raise ValueError(
@@ -705,7 +793,7 @@ class AudioViT(nn.Module):
                 f"{len(bucket_rates)}"
             )
         bucket_counts = compose_kept_counts(bucket_rates, cfg.num_patches)
-        tokens = self.embed(x)
+        tokens = self.embed(x, generator)
         token_mask = pruning.full_token_mask(x.shape[0], cfg.num_patches, x.device)
         first = min(cfg.drop_loc) if cfg.drop_loc else cfg.depth
         prefix = None

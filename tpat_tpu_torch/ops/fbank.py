@@ -17,9 +17,12 @@ feature-extraction specification:
      bins spanning [low_freq=20, nyquist], nyquist column zeroed
   -> log(max(x, eps32))
 
-Copied rather than imported (the port imports nothing of ``tpat_tpu``), and
-numpy only, so it runs the same on any host.  The batched device version
-(``fbank_jax``) is ROADMAP A8.
+Copied rather than imported (the port imports nothing of ``tpat_tpu``).
+``fbank_numpy`` is the host version, numpy only.  ``fbank_torch`` is the
+batched version of ``fbank_jax`` (``:186-233``) for the device frontend
+(``ops/frontend.py``): it runs on the device of its input, frames by
+``Tensor.unfold``, and takes the rFFT and the mel product from the library
+(cuFFT and cuBLAS on the card), all in float32.
 """
 
 from __future__ import annotations
@@ -184,3 +187,38 @@ def pad_or_crop(
 def normalize(fbank, mean: float, std: float):
     """(fbank - mean) / (2 * std), the reference dataset's normalisation."""
     return (fbank - mean) / (std * 2.0)
+
+
+def fbank_torch(waveforms, cfg: Optional[FbankConfig] = None):
+    """Batched log-mel on the device of ``waveforms``: (B, num_samples) ->
+    (B, num_frames, num_mel_bins) float32 (a 1-D waveform gives
+    (num_frames, num_mel_bins))."""
+    import torch
+
+    cfg = cfg or FbankConfig()
+    x = torch.as_tensor(waveforms).float()
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[None]
+    num_frames = cfg.num_frames(x.shape[-1])
+    size = cfg.window_size
+    frames = x[:, : (num_frames - 1) * cfg.window_shift + size]
+    frames = frames.unfold(1, size, cfg.window_shift)  # (B, F, size)
+    if cfg.remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if cfg.preemphasis != 0.0:
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - cfg.preemphasis * prev
+    window = torch.from_numpy(_window_fn(cfg.window_type, size)).to(x.device)
+    frames = frames * window
+    pad = cfg.padded_window_size - size
+    if pad:
+        frames = torch.nn.functional.pad(frames, (0, pad))
+    spec = torch.fft.rfft(frames, dim=-1).abs()
+    if cfg.use_power:
+        spec = spec * spec
+    banks = torch.from_numpy(mel_banks(cfg)).to(x.device)
+    mel = spec @ banks.T
+    if cfg.use_log_fbank:
+        mel = torch.log(torch.clamp_min(mel, EPSILON))
+    return mel[0] if squeeze else mel

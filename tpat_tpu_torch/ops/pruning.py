@@ -103,3 +103,14 @@ def masked_softmax(logits: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor
 
 def full_token_mask(batch: int, num_patches: int, device=None) -> torch.Tensor:
     return torch.ones((batch, num_patches), dtype=torch.bool, device=device)
+
+
+def compose_topk_indices(idx_stages) -> torch.Tensor:
+    """Per-stage top-k indices composed into indices of the original patch
+    grid (``tpat_tpu/ops/pruning.py:209-218``): stage k's indices address
+    the tokens that survived stage k-1, so each stage gathers through the
+    composition so far."""
+    composed = idx_stages[0]
+    for idx in idx_stages[1:]:
+        composed = torch.gather(composed, 1, idx)
+    return composed

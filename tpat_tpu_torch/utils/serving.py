@@ -15,6 +15,15 @@ rebuilds the model from the config and runs it eagerly.
 Bucketed artifacts dispatch as the JAX loader does: each request is padded
 with zero rows to the smallest bucket that fits and the logits are sliced
 back; a request larger than the biggest bucket is chunked by it.
+
+A waveform artifact (``frontend=``, ``meta["frontend"]["input"] ==
+"waveform"``, the JAX package's schema) takes raw PCM (n, num_samples):
+``load_forward`` runs the device frontend (``ops/frontend.py``: fbank, pad
+with the clip's minimum, normalisation; AST's transpose where
+``ast_orientation``) before the model, whichever package wrote the
+artifact.  Its padding contract is in the meta: a short clip carries a NaN
+tail, VoxCeleb's left pad a NaN head of a multiple of 160 samples.  The
+bucket padding stays zero rows, never NaN rows, which have no real frame.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 
 from tpat_tpu_torch.config import ViTConfig
 from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.ops.frontend import FrontendConfig, device_frontend
 from tpat_tpu_torch.utils.weights import jax_flat_from_state_dict, state_dict_from_jax
 
 
@@ -48,17 +58,39 @@ def export_forward(
     input_shape: Sequence[int],
     out_dir: str,
     batch_sizes: Optional[Sequence[int]] = None,
+    frontend: Optional[FrontendConfig] = None,
+    ast_orientation: bool = False,
 ) -> str:
     """Write ``model``'s parameters and the serving metadata to ``out_dir``.
 
     input_shape: ``(batch, 1, target_length, num_mel_bins)``, or AST's
-    ``(batch, 1, num_mel_bins, target_length)``.  With
-    ``batch_sizes`` (e.g. ``(1, 8, 32, 128)``) the artifact is bucketed and
-    the leading dim of ``input_shape`` is ignored; without, the batch size
-    is fixed to ``input_shape[0]``.
+    ``(batch, 1, num_mel_bins, target_length)``; with ``frontend``, raw
+    waveforms ``(batch, num_samples)``.  With ``batch_sizes`` (e.g.
+    ``(1, 8, 32, 128)``) the artifact is bucketed and the leading dim of
+    ``input_shape`` is ignored; without, the batch size is fixed to
+    ``input_shape[0]``.  ``ast_orientation``: with ``frontend``, transpose
+    the spectrogram to AST's (B, 1, F, T) before the model.
     """
     os.makedirs(out_dir, exist_ok=True)
     meta = {"input_dtype": "float32"}
+    if frontend is not None:
+        meta["frontend"] = {
+            "input": "waveform",
+            "num_samples": int(input_shape[-1]),
+            "sample_rate": frontend.sample_rate,
+            "num_mel_bins": frontend.num_mel_bins,
+            "target_length": frontend.target_length,
+            "norm_mean": frontend.norm_mean,
+            "norm_std": frontend.norm_std,
+            "ast_orientation": bool(ast_orientation),
+            "padding_contract": (
+                "pad short clips to num_samples with NaN at the TAIL "
+                "(frames the true length cannot produce take the clip's "
+                "fbank.min() fill, dataset.py:218-225); an optional NaN "
+                "HEAD (VoxCeleb lr_pad) must be a multiple of the "
+                "160-sample frame shift; fully-finite inputs unaffected"
+            ),
+        }
     if batch_sizes is None:
         meta["input_shape"] = [int(s) for s in input_shape]
     else:
@@ -94,9 +126,9 @@ def load_forward(
     device: str = "cuda",
 ) -> Tuple[Callable, dict]:
     """Load an artifact onto ``device``; returns ``(fn, meta)`` where
-    ``fn(x)`` maps a batch of the artifact's input shape ((n, 1, T, F), or
-    AST's (n, 1, F, T); numpy or tensor) to (n, classes) f32 logits on
-    ``device``."""
+    ``fn(x)`` maps a batch of the artifact's input shape ((n, 1, T, F),
+    AST's (n, 1, F, T), or (n, num_samples) waveforms; numpy or tensor) to
+    (n, classes) f32 logits on ``device``."""
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)
     if cfg is None:
@@ -106,6 +138,20 @@ def load_forward(
     model = AudioViT(cfg, device=device)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     model.eval()
+
+    front = meta.get("frontend")
+    if front is not None and front.get("input") == "waveform":
+        fcfg = FrontendConfig(
+            sample_rate=front["sample_rate"], num_mel_bins=front["num_mel_bins"],
+            target_length=front["target_length"], norm_mean=front["norm_mean"],
+            norm_std=front["norm_std"],
+        )
+
+        def forward(wav: torch.Tensor) -> torch.Tensor:
+            spec = device_frontend(wav, fcfg)
+            return model(spec.transpose(2, 3) if front["ast_orientation"] else spec)
+    else:
+        forward = model
 
     dtype = getattr(torch, meta["input_dtype"])
     sample_shape = tuple(meta["input_shape"][1:])
@@ -118,7 +164,7 @@ def load_forward(
         if n < b:
             pad = chunk.new_zeros((b - n,) + chunk.shape[1:])
             chunk = torch.cat([chunk, pad], dim=0)
-        return model(chunk)[:n]
+        return forward(chunk)[:n]
 
     def fn(x) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=dtype, device=device)
