@@ -166,7 +166,30 @@ printing a result:
     (bf16 tolerance); one b128 dense step with ``remat`` on and off (the
     same loss, gradients within the bf16 tolerance, the peak memory of
     each) and one at drop_rate 0.1;
-23. the kernels line, with the entries ``layernorm_fwd``,
+23. the pretraining run as users run it: ``scripts/run_pretrain.sh``'s flags
+    (``mae_vit_base_dec512d8b``, 1024 frames, 2D masking 0.7/0.3,
+    ``--norm_pix_loss``, ``--decoder_mode 1``, bf16) through
+    ``tpat_tpu_torch.cli.pretrain.main`` on a seeded AudioSet-shaped corpus
+    written here (256 clips of 10 s, 527 classes), with its cuts printed:
+    batch 32 for two epochs, a resume from ``checkpoint-001`` to a third, a
+    ``--resume mae_pretrained.pth`` epoch (the MAE importer), a
+    ``--decoder_mode 0`` epoch (the plain decoder: B1/B3 at head_dim 32, N =
+    513), one b256 step (the script's batch) with its peak memory; every
+    step's launches against the configuration's (encoder N = 96) and every
+    step's geometry the same, the logged epochs and finite losses; the
+    exported ``.pth`` through the finetune CLI's import into
+    ft_esc50.sh's ViT-B (the pos embed's time crop) and one b128 eval
+    forward; B1-B3 at head_dim 32 vs plain on a B=2 grid (every mode, the
+    prefix form, f32 and bf16), B1/B3 at the decoder-0 step's geometries vs
+    plain in bf16 and f32, timed beside SDPA and the bound; one f32
+    decoder-0 step, the kernels vs plain attention (loss and gradients);
+24. the device dataset cache: phase 22's run (``--device_frontend true``)
+    at ``--device_dataset auto`` (the eval set cached, the train set
+    declined for roll-mag) and ``false``, then the pair with
+    ``--roll_mag_aug false`` (both sets cached): which sets were cached, the
+    per-epoch losses within rel 1e-6 and the accuracies equal, the eval ms
+    per forward, the loader-wait share and the first-step excess;
+25. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
     ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
@@ -191,8 +214,11 @@ The line before the last is a JSON object with each kernel's launches (from
 the serving, training and pretrain paths, and the probes' mains), error,
 times and bound, and for the attention kernels B1-B3 ``finetune_launches``
 and ``ast_launches``, their launches in phase 20's and phase 21's runs,
-``waveform_launches``, their launches in phase 22 (also counted in
-``launches``), and ``ast_ms``, their time per AST hybrid train step; B2's ``noscore``
+``waveform_launches`` and ``pretrain_cli_launches``, their launches in
+phases 22 and 23 (also counted in ``launches``), ``ast_ms``, their time per
+AST hybrid train step, and for B1/B3 the ``dec0_*`` fields, their head_dim
+32 calls per decoder-0 pretrain step (ms, plain, SDPA, bound, launches);
+B2's ``noscore``
 sums its calls without scores beside SDPA with the key mask; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -355,7 +381,7 @@ def bf16_build(name: str, kernel: str) -> dict:
     return build_fields(
         name, "mma.sync m16n8k16 bf16 (ldmatrix), cp.async double-buffered "
               "tiles; f32 keeps FMA tiles",
-        {str(d): (kernel, f"ILi{d}E") for d in (64, 80)})
+        {str(d): (kernel, f"ILi{d}E") for d in (32, 64, 80)})
 
 
 def probe_builds() -> tuple:
@@ -3170,6 +3196,520 @@ def waveform_path(tmp, paths, walks, ft_loader, spec_dir, sd, smi):
     return tuple(a + b + c for a, b, c in zip(train, extract, serve))
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: scripts/run_pretrain.sh through the port's pretrain CLI, on a
+# seeded AudioSet-shaped corpus; the plain decoder (decoder_mode 0) and B1/B3
+# at head_dim 32; the pretrain -> finetune chain
+# ---------------------------------------------------------------------------
+
+PRETRAIN_CLIPS = 256  # one b256 step of run_pretrain.sh
+PRETRAIN_SECONDS = 10.0  # AudioSet clips: 998 fbank frames, padded to 1024
+AUDIOSET_CLASSES = 527
+PRETRAIN_SEED = 23
+PRETRAIN_CLI_BATCH = 32  # run_pretrain.sh's 256 cut to phase 13's batch
+PRETRAIN_FULL_BATCH = 256  # run_pretrain.sh's batch
+# run_pretrain.sh's flags (mae_vit_base_dec512d8b is --model mae_vit_base,
+# the default); --batch_size and --epochs come from the runs below
+PRETRAIN_FLAGS = ("--dataset", "audioset", "--blr", "2e-4", "--mask_2d",
+                  "--mask_t_prob", "0.7", "--mask_f_prob", "0.3",
+                  "--decoder_mode", "1", "--norm_pix_loss")
+PRETRAIN_CUTS = (
+    "batch 256 -> 32 (phase 13's batch) in runs 1-4 and 256 in run 5 (one "
+    "step); epochs 32 -> 2, resumed to 3 from checkpoint-001; the .pth "
+    "resume, decoder_mode 0 and the b256 step one epoch each; AS-20K's "
+    "~20k clips -> 256 seeded tones of 10 s")
+# tokens under --mask_2d 0.7/0.3 on the 64 x 8 AudioSet grid: kept time rows
+# x kept frequency columns, plus CLS
+PRETRAIN_ENC_N = 1 + int(64 * (1 - 0.7)) * int(8 * (1 - 0.3))
+DEC0_N = 64 * 8 + 1  # the plain decoder over CLS and every patch
+# per-step launches (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd)
+PRETRAIN_CLI_LAUNCHES = {1: PRETRAIN_STEP_LAUNCHES["AudioSet"],
+                         0: (28, 28, 28, 0, 0, 0, 0)}
+
+
+def pretrain_corpus(root):
+    """Seeded 10-s WAVs in the AudioSet JSON layout (one to three of 527
+    labels each, a tone per label with harmonics, a random gain and noise)
+    and the 527-class label CSV."""
+    import numpy as np
+
+    from tpat_tpu_torch.data.wav import save_wav
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(PRETRAIN_SEED)
+    sr = 16000
+    t = np.arange(int(PRETRAIN_SECONDS * sr)) / sr
+    entries = []
+    for i in range(PRETRAIN_CLIPS):
+        labels = rng.choice(AUDIOSET_CLASSES, size=int(rng.integers(1, 4)),
+                            replace=False)
+        w = sum(np.sin(2 * math.pi * (100.0 + 7.0 * c) * k * t
+                       + rng.uniform(0, 6.3)) / k
+                for c in labels for k in (1, 2))
+        w = 0.1 * rng.uniform(0.5, 1.5) * w + 0.05 * rng.normal(size=t.size)
+        path = os.path.join(root, f"as{i:03d}.wav")
+        save_wav(path, w.astype(np.float32), sr)
+        entries.append({"wav": path,
+                        "labels": ",".join(f"/m/a{c:03d}" for c in labels)})
+    paths = {"train": os.path.join(root, "as20k_16k.json"),
+             "labels": os.path.join(root, "class_labels_indices.csv")}
+    with open(paths["train"], "w") as f:
+        json.dump({"data": entries}, f)
+    with open(paths["labels"], "w") as f:
+        f.write("index,mid,display_name\n")
+        for c in range(AUDIOSET_CLASSES):
+            f.write(f'{c},/m/a{c:03d},"class {c}"\n')
+    return paths
+
+
+def pretrain_argv(paths, out, *extra):
+    """run_pretrain.sh's flags at phase 23's batch and two epochs; later
+    flags in ``extra`` override."""
+    return ["--data_train", paths["train"], "--label_csv", paths["labels"],
+            *PRETRAIN_FLAGS, "--batch_size", str(PRETRAIN_CLI_BATCH),
+            "--epochs", "2", "--output_dir", out, *extra]
+
+
+@contextlib.contextmanager
+def _pretrain_cli_recording(qa, wa, calls, rec):
+    """Time and count the pretrain CLI's steps without touching the CLI:
+    ``engine.pretrain.make_mae_train_step``'s step is wrapped (synchronised
+    ms, launch counts, recorded launches, batch rows per step) and the host
+    loader's ``__iter__`` times the wait for each batch."""
+    from tpat_tpu_torch.data import loader as loader_lib
+    from tpat_tpu_torch.engine import pretrain
+
+    make_step = pretrain.make_mae_train_step
+    iterate = loader_lib.DataLoader.__iter__
+
+    def counts():
+        return _pretrain_counts(qa, wa)
+
+    def timed_make(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(loss_sum, i, x, **kw2):
+            torch.cuda.synchronize()
+            c0, i0, t0 = counts(), len(calls), time.perf_counter()
+            out = step(loss_sum, i, x, **kw2)
+            torch.cuda.synchronize()
+            rec["steps"].append(((time.perf_counter() - t0) * 1e3,
+                                 tuple(a - b for a, b in zip(counts(), c0)),
+                                 tuple(calls[i0:]), x.shape[0]))
+            return out
+
+        return timed
+
+    def waited(self):
+        it = iterate(self)
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            rec["wait_ms"].append((time.perf_counter() - t) * 1e3)
+            yield item
+
+    pretrain.make_mae_train_step = timed_make
+    loader_lib.DataLoader.__iter__ = waited
+    try:
+        with _recording(qa, calls), _window_recording(wa, calls):
+            yield
+    finally:
+        pretrain.make_mae_train_step = make_step
+        loader_lib.DataLoader.__iter__ = iterate
+
+
+def _pretrain_cli_run(argv, decoder_mode, what):
+    """One ``cli.pretrain.main`` on the card with the launch counters at 0
+    before it and read after it: each step's launches against
+    ``PRETRAIN_CLI_LAUNCHES``, every step's recorded geometry the same (per
+    batch size), the encoder's at N = PRETRAIN_ENC_N.  Returns (the epoch
+    losses, the record, the run's launches, wall s, one step's walk)."""
+    from tpat_tpu_torch.cli import pretrain as cli_pretrain
+    from tpat_tpu_torch.ops import qkv_attention as qa
+    from tpat_tpu_torch.ops import window_attention as wa
+
+    calls, rec = [], {"steps": [], "wait_ms": []}
+    with _pretrain_cli_recording(qa, wa, calls, rec):
+        qa.launches = qa.prefix_launches = 0  # the main path starts here
+        qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+        wa.launches = wa.banded_launches = 0
+        wa.bwd_launches = wa.banded_bwd_launches = 0
+        t0 = time.perf_counter()
+        losses = cli_pretrain.main(cli_pretrain.get_args_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _pretrain_counts(qa, wa)  # the main path ends here
+    if qa.prefix_launches:
+        raise AssertionError(f"{what}: the prefix kernel ran")
+    want = PRETRAIN_CLI_LAUNCHES[decoder_mode]
+    walk = None
+    for i, (_ms, got, step_calls, rows) in enumerate(rec["steps"]):
+        if got != want:
+            raise AssertionError(f"{what} step {i}: launches {got}, expected {want}")
+        if walk is None:
+            walk = step_calls
+        if len(step_calls) != len(walk) or any(
+                a[:1] + a[2:] != b[:1] + b[2:] for a, b in zip(step_calls, walk)):
+            raise AssertionError(f"{what}: steps launched at other geometries")
+        for c in step_calls:
+            if c[0] in ("fwd", "bwd") and c[5] == 12 and c[2] != PRETRAIN_ENC_N:
+                raise AssertionError(f"{what}: encoder launch at N = {c[2]}")
+            if c[0] in ("fwd", "bwd") and c[5] == 16 and c[2] != DEC0_N:
+                raise AssertionError(f"{what}: decoder launch at N = {c[2]}")
+    summed = tuple(sum(s[1][k] for s in rec["steps"]) for k in range(7))
+    if summed != launches:
+        raise AssertionError(f"{what}: launches {launches}, steps account for "
+                             f"{summed}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: losses {losses}")
+    return losses, rec, launches, wall, walk
+
+
+def _epochs_logged(out):
+    with open(os.path.join(out, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _run_summary(rec) -> dict:
+    """Steady step ms (median of the steps after the first of the run), the
+    first step's and the last's (by then the loader has no batch left to
+    make, so nothing runs beside it), the loader wait per batch and its
+    share of the loop."""
+    import numpy as np
+
+    ms = [s[0] for s in rec["steps"]]
+    wait = sum(rec["wait_ms"])
+    return {"step_ms": float(np.median(ms[1:] if len(ms) > 1 else ms)),
+            "first_ms": ms[0], "last_ms": ms[-1],
+            "wait_ms": wait / len(rec["wait_ms"]),
+            "wait_share": wait / (wait + sum(ms))}
+
+
+def d32_grid_vs_plain() -> float:
+    """B1, B2 and B3 at head_dim 32 vs plain at B=2 (H=16, N 513, 90 and
+    33), every mode, f32 and bf16: the forward and the prefix forward at a
+    middle kv_valid, the backward with and without a score cotangent."""
+    from tpat_tpu_torch.ops import qkv_attention as qa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    worst, cases = 0.0, 0
+    for n in (513, 90, 33):
+        for mode, extra in ((None, 1), ("patch_mean", 1), ("cls", 2)):
+            mid = (extra + 1 + n) // 2
+            for dt in (torch.float32, torch.bfloat16):
+                qkv = torch.randn(2, n, 3 * 512, device="cuda",
+                                  generator=gen).to(dt)
+                for kv in (None, mid):
+                    worst = max(worst, *_compare(qa, qkv, 16, mode, extra, kv))
+                d_out = torch.randn(2, n, 512, device="cuda", generator=gen).to(dt)
+                cots = [None] if mode is None else [
+                    None, n * torch.randn(2, n - extra, device="cuda",
+                                          generator=gen)]
+                for ds in cots:
+                    worst = max(worst, _compare_bwd(qa, qkv, d_out, ds, 16,
+                                                    mode, extra, None))
+                cases += 1
+    log(f"head_dim 32 vs plain at B=2: {cases} inputs (forward, prefix "
+        f"forward, backward), worst abs err {worst:.3g}")
+    return worst
+
+
+def d32_path_vs_plain(walk) -> tuple:
+    """B1 and B3 at each recorded head_dim-32 geometry of a decoder-0 step:
+    ``path_kernels_vs_plain`` (bf16, compared, timed in turns beside the
+    library call and the bound), then the same geometries in f32 against
+    plain.  Returns (the per-step sums, {kernel: worst error})."""
+    from tpat_tpu_torch.ops import qkv_attention as qa
+
+    d32 = tuple(c for c in walk
+                if c[0] in ("fwd", "bwd") and c[3] // 3 // c[5] == 32)
+    if len(d32) != 32:
+        raise AssertionError(f"decoder-0 step: {len(d32)} head_dim 32 launches")
+    sums, worst = path_kernels_vs_plain({"decoder-0 step": d32})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    for call in sorted(set(d32), key=str):
+        kind, b, n, c3, _dt, h, mode, extra, kv, has_ds = call
+        qkv = torch.randn(b, n, c3, device="cuda", generator=gen)
+        if kind == "fwd":
+            worst["B1"] = max(worst["B1"], *_compare(qa, qkv, h, mode, extra, kv))
+        else:
+            d_out = torch.randn(b, n, c3 // 3, device="cuda", generator=gen)
+            worst["B3"] = max(worst["B3"], _compare_bwd(
+                qa, qkv, d_out, None, h, mode, extra, kv))
+    log(f"head_dim 32 at the decoder-0 geometries (B={d32[0][1]}, N="
+        f"{d32[0][2]}, H={d32[0][5]}), bf16 and f32 vs plain: worst abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items() if k != "B2"))
+    return sums["decoder-0 step"], worst
+
+
+def pretrain_step_f32_dec0():
+    """One f32 decoder-0 pretrain step at the AudioSet grid under
+    run_pretrain.sh's masking, the attention kernels vs plain attention
+    (``attention_impl='xla'`` in every block), from the same seeded weights,
+    batch and step generator: the loss within STEP_LOSS_RTOL, every
+    gradient within GRAD_F32_REL of its largest entry."""
+    from tpat_tpu_torch.cli import profile_pretrain as pp
+    from tpat_tpu_torch.engine import pretrain
+    from tpat_tpu_torch.models.vit import Block
+
+    res = {}
+    for impl in ("fused", "xla"):
+        cfg = dataclasses.replace(pp.pretrain_config(1024, "auto", "float32"),
+                                  decoder_mode=0, mask_2d=True,
+                                  norm_pix_loss=True)
+        model, _ = pp.build(cfg, seed=SEED)
+        for blk in model.modules():
+            if isinstance(blk, Block):
+                blk.attn.cfg = dataclasses.replace(blk.attn.cfg,
+                                                   attention_impl=impl)
+        model.train()
+        x = pp.synthetic_batch(cfg, STEP_BATCH_F32, seed=SEED + 8)
+        gen = pretrain.step_generator(SEED, 0, "cuda")
+        loss, _, _ = model(x, pp.MASK_RATIO, generator=gen)
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        res[impl] = (loss.item(), dict(zip((n for n, _ in named), grads)))
+        del model
+        torch.cuda.empty_cache()
+    (lk, gk), (lx, gx) = res["fused"], res["xla"]
+    if not abs(lk - lx) <= STEP_LOSS_RTOL * abs(lx):
+        raise AssertionError(f"decoder-0 f32 loss {lk} vs {lx} (xla)")
+    worst = 0.0
+    for k, g in gx.items():
+        err = (gk[k] - g).abs().max().item()
+        scale = g.abs().max().item()
+        if not err <= GRAD_F32_REL * scale:
+            raise AssertionError(f"decoder-0 grad {k} err {err:.3g} > "
+                                 f"{GRAD_F32_REL} x {scale:.3g}")
+        worst = max(worst, err / scale if scale else 0.0)
+    log(f"f32 decoder-0 pretrain step, AudioSet grid, b{STEP_BATCH_F32}, "
+        f"2D masking: loss {lk:.7f} vs {lx:.7f} (xla); {len(gx)} parameter "
+        f"gradients, worst err / max|grad| {worst:.3g}")
+
+
+def pretrain_chain(pth, corpus, tmp, smi):
+    """The exported mae_pretrained.pth into the finetune CLI's model
+    (``cli.finetune.initial_state_dict``: the trunk through
+    ``audiomae_state_dict_for``, the pos embed time-cropped from the 64 x 8
+    grid to 32 x 8) at ft_esc50.sh's configuration, then one b128 bf16 eval
+    forward: finite (128, 50) logits, 12 B1 launches."""
+    from tpat_tpu_torch import config as cfg_lib
+    from tpat_tpu_torch.cli import finetune
+    from tpat_tpu_torch.models import pos_embed as pe
+    from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.ops import qkv_attention as qa
+    from tpat_tpu_torch.utils.weights import load_pth
+
+    args = finetune.get_args_parser().parse_args(
+        finetune_argv(corpus, os.path.join(tmp, "chain_out"))
+        + ["--audioset_pretrained_model_path", pth])
+    cfg = cfg_lib.audiomae_vit_base(
+        num_classes=FINETUNE_CLASSES, target_length=512, drop_loc=(3, 6, 9),
+        base_keep_rate=0.7, compute_dtype="bfloat16")
+    sd = finetune.initial_state_dict(args, cfg)
+    src = load_pth(pth)
+    want = pe.crop_time_audio_pos_embed(src["pos_embed"].numpy(), (8, 64),
+                                        (8, 32), num_extra_tokens=1)
+    if not torch.equal(sd["pos_embed"], torch.from_numpy(want)):
+        raise AssertionError("chain: the finetune pos embed is not the "
+                             "cropped pretrain table")
+    if not torch.equal(sd["blocks.11.mlp.fc2.weight"],
+                       src["blocks.11.mlp.fc2.weight"]):
+        raise AssertionError("chain: the pretrained trunk did not land")
+    model = AudioViT(cfg, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    x = torch.randn(FINETUNE_BATCH, 1, 512, 128, device="cuda", generator=gen)
+    c0 = qa.launches
+    with torch.no_grad():
+        logits = model.eval()(x)
+    torch.cuda.synchronize()
+    if (tuple(logits.shape) != (FINETUNE_BATCH, FINETUNE_CLASSES)
+            or not torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"chain logits {tuple(logits.shape)}")
+    if qa.launches - c0 != 12:
+        raise AssertionError(f"chain forward: {qa.launches - c0} B1 launches")
+    log(f"pretrain -> finetune chain: mae_pretrained.pth into ft_esc50.sh's "
+        f"ViT-B (pos embed cropped 64 x 8 -> 32 x 8, head fresh), one "
+        f"b{FINETUNE_BATCH} bf16 eval forward: finite logits, 12 B1 "
+        f"launches ({smi})")
+
+
+def pretrain_cli_path(tmp, ft_corpus, smi):
+    """Phase 23.  Returns ((fwd, bwd rows, bwd cols) launches of its runs,
+    the decoder-0 D32 sums, the D32 worst errors, the decoder-0 runs'
+    (fwd, rows, cols) launches)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    paths = pretrain_corpus(os.path.join(tmp, "audioset"))
+    log(f"pretrain corpus: {PRETRAIN_CLIPS} clips of {PRETRAIN_SECONDS} s, "
+        f"{AUDIOSET_CLASSES} classes, written in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"pretrain CLI cuts of run_pretrain.sh: {PRETRAIN_CUTS}")
+    grid_err = d32_grid_vs_plain()
+    out = os.path.join(tmp, "pre_out")
+    runs = {}
+    total = [0] * 7
+
+    def run(label, argv, decoder_mode, epochs):
+        res = _pretrain_cli_run(argv, decoder_mode, label)
+        logged = _epochs_logged(argv[argv.index("--output_dir") + 1])
+        if [e["epoch"] for e in logged] != epochs or not all(
+                math.isfinite(e["loss"]) for e in logged):
+            raise AssertionError(f"{label}: log {logged}")
+        runs[label] = res
+        for k in range(7):
+            total[k] += res[2][k]
+        s = _run_summary(res[1])
+        log(f"pretrain {label}: epochs {[e['epoch'] for e in logged]} losses "
+            f"{[round(e['loss'], 5) for e in logged]}; {len(res[1]['steps'])} "
+            f"steps of b{res[1]['steps'][0][3]}, ms per step {s['step_ms']:.1f}"
+            f" median (first {s['first_ms']:.1f}, last {s['last_ms']:.1f}); loader "
+            f"wait "
+            f"{s['wait_ms']:.1f} ms per batch, {s['wait_share']:.3f} of the "
+            f"loop; {res[3]:.1f} s wall; launches (B1, B3 rows, B3 cols, B5 "
+            f"fwd, B6 fwd, B5 bwd, B6 bwd) {res[2]} ({smi})")
+        return res
+
+    run("run 1 (2 epochs)", pretrain_argv(paths, out), 1, [0, 1])
+    for name in ("checkpoint-001", "mae_pretrained.pth"):
+        if not os.path.isfile(os.path.join(out, name)):
+            raise AssertionError(f"pretrain wrote no {name}")
+    run("run 2 (resume to 3)", pretrain_argv(
+        paths, out, "--epochs", "3", "--resume",
+        os.path.join(out, "checkpoint-001")), 1, [0, 1, 2])
+    pth = os.path.join(out, "mae_pretrained.pth")
+    run("run 3 (.pth resume)", pretrain_argv(
+        paths, os.path.join(tmp, "pre_pth"), "--epochs", "1", "--resume", pth),
+        1, [0])
+    dec0 = run("run 4 (decoder_mode 0)", pretrain_argv(
+        paths, os.path.join(tmp, "pre_dec0"), "--epochs", "1",
+        "--decoder_mode", "0", "--export_torch", "false"), 0, [0])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = run("run 5 (one b256 step)", pretrain_argv(
+        paths, os.path.join(tmp, "pre_b256"), "--epochs", "1",
+        "--batch_size", str(PRETRAIN_FULL_BATCH), "--export_torch", "false",
+        "--save_every_epochs", "0"), 1, [0])
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if [s[3] for s in full[1]["steps"]] != [PRETRAIN_FULL_BATCH]:
+        raise AssertionError(f"b256 run: steps {[s[3] for s in full[1]['steps']]}")
+    log(f"pretrain b{PRETRAIN_FULL_BATCH} step (run_pretrain.sh's batch): "
+        f"{full[1]['steps'][0][0]:.1f} ms, peak memory {peak:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f} "
+        f"(model, optimizer and activations) ({smi})")
+    pretrain_chain(pth, ft_corpus, tmp, smi)
+    for d in ("pre_pth", "pre_dec0", "pre_b256"):
+        shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    d32_sums, d32_err = d32_path_vs_plain(dec0[4])
+    for k in ("B1", "B2", "B3"):  # the B=2 grid: forward, prefix, backward
+        d32_err[k] = max(d32_err[k], grid_err)
+    pretrain_step_f32_dec0()
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s; launches of its "
+        f"runs (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd) "
+        f"{tuple(total)}; decoder-0 run {dec0[2]}; median step ms "
+        + ", ".join(f"{k}: {np.median([s[0] for s in v[1]['steps']]):.1f}"
+                    for k, v in runs.items()))
+    return tuple(total), d32_sums, d32_err, dec0[2]
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the device dataset cache in phase 22's run
+# ---------------------------------------------------------------------------
+
+# flags that make the train set eligible too: ft_esc50.sh's roll-mag off
+# (with --device_frontend true, SpecAug runs on the device)
+CACHE_ELIGIBLE = ("--roll_mag_aug", "false")
+
+
+def _cached_run(tmp, paths, tag, extra, smi):
+    """Phase 20's run with ``extra`` flags, the cache registry cleared
+    first: (log lines, loader summary, eval ms median, {set: cached}, wall
+    s)."""
+    import numpy as np
+
+    from tpat_tpu_torch.cli import finetune
+    from tpat_tpu_torch.data import device_cache as dc
+    from tpat_tpu_torch.ops import qkv_attention as qa
+
+    out = os.path.join(tmp, f"cache_{tag}")
+    argv = finetune_argv(paths, out) + ["--device_frontend", "true", *extra]
+    cached = {}
+    maybe = finetune.maybe_device_cached
+
+    def recording(dataset, batch_size, **kw):
+        got = maybe(dataset, batch_size, **kw)
+        cached[kw["label"]] = got is not None
+        return got
+
+    dc.clear_cache()
+    finetune.maybe_device_cached = recording
+    calls, epochs, evals = [], [], []
+    try:
+        with _finetune_recording(qa, calls, epochs, evals):
+            t0 = time.perf_counter()
+            finetune.main(finetune.get_args_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        finetune.maybe_device_cached = maybe
+        dc.clear_cache()
+    logs = _epochs_logged(out)
+    shutil.rmtree(out, ignore_errors=True)
+    summary = _loader_summary(epochs)
+    eval_ms = float(np.median([ms for ms, _, _ in evals]))
+    excess = [round(s[0] - s[1], 1) for s in summary["step_ms"]]
+    waits = [w for rec in epochs for w in rec["wait_ms"]]
+    log(f"device cache, {tag} ({' '.join(extra)}): cached {cached}; loader "
+        f"wait {summary['wait_ms']:.1f} ms per batch (median "
+        f"{np.median(waits):.1f}, the first {waits[0]:.1f}), "
+        f"{summary['wait_share']:.3f} of the epochs; first-step excess per "
+        f"epoch {excess} ms; eval "
+        f"forwards {eval_ms:.2f} ms median of {len(evals)}; {wall:.1f} s wall "
+        f"({smi})")
+    return logs, summary, eval_ms, cached, wall
+
+
+def device_cache_path(tmp, paths, smi):
+    """Phase 24: phase 22's run (ft_esc50.sh's flags, ``--device_frontend
+    true``) at ``--device_dataset auto`` (the eval set cached, the train set
+    declined for roll-mag) and ``false``, then the pair again with
+    ``CACHE_ELIGIBLE`` (both sets cached): per pair, the per-epoch losses
+    within rel 1e-6 and the accuracies equal."""
+    t0 = time.perf_counter()
+    base = ("--device_dataset",)
+    log(f"device cache: phase 22's run in pairs (auto, false), then with the "
+        f"flags that make the train set eligible: {' '.join(CACHE_ELIGIBLE)}")
+    for pair, extra, want in (
+            ("ft_esc50", (), {"train set": False, "eval set": True}),
+            ("eligible", CACHE_ELIGIBLE, {"train set": True, "eval set": True})):
+        auto = _cached_run(tmp, paths, f"{pair} auto", (*extra, *base, "auto"), smi)
+        off = _cached_run(tmp, paths, f"{pair} false", (*extra, *base, "false"), smi)
+        if auto[3] != want or any(off[3].values()):
+            raise AssertionError(f"{pair}: cached {auto[3]} (auto), "
+                                 f"{off[3]} (false); expected {want}")
+        for a, b in zip(auto[0], off[0]):
+            for k in ("train_loss", "test_loss"):
+                if not abs(a[k] - b[k]) <= 1e-6 * abs(b[k]):
+                    raise AssertionError(f"{pair} epoch {a['epoch']}: {k} "
+                                         f"{a[k]} cached vs {b[k]} streamed")
+            if a["test_acc1"] != b["test_acc1"]:
+                raise AssertionError(f"{pair} epoch {a['epoch']}: acc1 "
+                                     f"{a['test_acc1']} vs {b['test_acc1']}")
+        log(f"device cache, {pair}: losses within rel 1e-6 and accuracies "
+            f"equal, cached vs streamed; eval ms median {auto[2]:.2f} vs "
+            f"{off[2]:.2f}, loader-wait share {auto[1]['wait_share']:.3f} vs "
+            f"{off[1]['wait_share']:.3f}, wall {auto[4]:.1f} vs {off[4]:.1f} s")
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     with tempfile.TemporaryDirectory() as tmp:
         run_phases(tmp)
@@ -3216,10 +3756,14 @@ def run_phases(tmp):
                                   smi)
     if min(wave_launches) == 0:
         raise AssertionError(f"waveform path launches {wave_launches}")
+    pre_cli, d32, d32_err, dec0_launches = pretrain_cli_path(tmp, corpus, smi)
+    if min(pre_cli[:3]) == 0 or min(pre_cli[4], pre_cli[6]) == 0:
+        raise AssertionError(f"pretrain CLI launches {pre_cli}")
+    device_cache_path(tmp, corpus, smi)
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
-    window_launches = {"B5 fwd": esc50[3], "B6 fwd": audioset[4],
-                       "B5 bwd": esc50[5], "B6 bwd": audioset[6]}
+    window_launches = {"B5 fwd": esc50[3], "B6 fwd": audioset[4] + pre_cli[4],
+                       "B5 bwd": esc50[5], "B6 bwd": audioset[6] + pre_cli[6]}
     if min(window_launches.values()) == 0:
         raise AssertionError(f"window kernel launches {window_launches}")
     step = sums[EPOCH_LABELS[3]]
@@ -3228,7 +3772,8 @@ def run_phases(tmp):
     bwd_note = ("plain_ms, bound_ms and library_ms are of the whole backward, "
                 "which the rows and cols kernels compute together; pair_ms is "
                 "both kernels through fused_qkv_attention_bwd")
-    b3_err = max(bwd_err, path_err["B3"], pre_err["B3"], ast_err["B3"])
+    b3_err = max(bwd_err, path_err["B3"], pre_err["B3"], ast_err["B3"],
+                 d32_err["B3"])
     ast_step = ast_sums[f"AST b{AST_BATCH} hybrid train step"]
     ast_note = (f"ast_launches: phase 21's run_ast run (ast_run_esc.sh, b"
                 f"{AST_BATCH}, 'cls' scores, 2 extra tokens); ast_ms: one "
@@ -3238,26 +3783,43 @@ def run_phases(tmp):
               note=bwd_note,
               library_backend=sorted(step["B3backends"]))
     fwd_build = bf16_build("qkv_attention", "qkv_attention_fwd_bf16_kernel")
+    dec0_note = (
+        "dec0_*: phase 23's head_dim 32 calls of one b32 bf16 decoder-0 "
+        "pretrain step (16 blocks of the plain decoder, N = 513, H = 16, no "
+        "scores), kernel, plain, SDPA and bound summed over the step; "
+        "dec0_launches: the launches of phase 23's decoder-0 run; "
+        "pretrain_cli_launches: those of all phase 23's runs (in launches "
+        "too)")
+
+    def dec0(key, ms_at, launches_at):
+        bms, by = bound_of(d32[key + "bound"])
+        return {"dec0_launches": dec0_launches[launches_at],
+                "dec0_ms": d32[key][ms_at], "dec0_plain_ms": d32[key][-1],
+                "dec0_library_ms": d32[key + "lib"], "dec0_bound_ms": bms,
+                "dec0_bound_by": by,
+                "pretrain_cli_launches": pre_cli[launches_at]}
+
     kernels = [
         _entry("qkv_attention_fwd", "qkv_attention.cu", "tpat_tpu/ops/pallas_attention.py:121",
                serve_launches + train_launches[0] + audioset[0] + esc50[0]
-               + wave_launches[0],
+               + wave_launches[0] + pre_cli[0],
                max(grid_err, timed_err, path_err["B1"], pre_err["B1"],
-                   ast_err["B1"]),
+                   ast_err["B1"], d32_err["B1"]),
                ms, plain_ms, bound_of(serve_bound), None,
                "one b128 bf16 serving forward (12 calls)",
                note="3 of the 12 calls (the drop blocks 3, 6, 9) emit "
                     "patch_mean scores, which no library call computes; the "
                     "9 without scores are timed against the library call in "
-                    "phase 3; " + ast_note,
+                    "phase 3; " + ast_note + "; " + dec0_note,
                finetune_launches=finetune_launches[0],
                waveform_launches=wave_launches[0],
                ast_launches=ast_launches[0], ast_ms=ast_step["B1"][0],
-               **fwd_build),
+               **dec0("B1", 0, 0), **fwd_build),
         _entry("qkv_attention_prefix_fwd", "qkv_attention.cu",
                "tpat_tpu/ops/pallas_attention.py:121",
                train_launches[1] + wave_launches[1],
-               max(prefix_err, path_err["B2"], ast_err["B2"]), step["B2"][0],
+               max(prefix_err, path_err["B2"], ast_err["B2"], d32_err["B2"]),
+               step["B2"][0],
                step["B2"][1], bound_of(step["B2bound"]), step["B2lib"],
                per_step,
                noscore={"calls": step["B2noscore"][0],
@@ -3271,10 +3833,13 @@ def run_phases(tmp):
                ast_launches=ast_launches[1], ast_ms=ast_step["B2"][0],
                **fwd_build),
         _entry("qkv_attention_bwd_rows", "qkv_attention_bwd.cu", bwd,
-               train_launches[2] + audioset[1] + esc50[1] + wave_launches[2],
+               train_launches[2] + audioset[1] + esc50[1] + wave_launches[2]
+               + pre_cli[1],
                b3_err,
                step["B3"][0], b3["plain"], b3["bound"], b3["lib"], per_step,
-               pair_ms=b3["pair_ms"], note=bwd_note + "; " + ast_note,
+               pair_ms=b3["pair_ms"],
+               note=bwd_note + "; " + ast_note + "; " + dec0_note,
+               dec0_pair_ms=d32["B3"][2], **dec0("B3", 0, 1),
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[2],
                waveform_launches=wave_launches[2],
@@ -3282,10 +3847,13 @@ def run_phases(tmp):
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_rows_bf16_kernel")),
         _entry("qkv_attention_bwd_cols", "qkv_attention_bwd.cu", bwd,
-               train_launches[3] + audioset[2] + esc50[2] + wave_launches[3],
+               train_launches[3] + audioset[2] + esc50[2] + wave_launches[3]
+               + pre_cli[2],
                b3_err,
                step["B3"][1], b3["plain"], b3["bound"], b3["lib"], per_step,
-               pair_ms=b3["pair_ms"], note=bwd_note + "; " + ast_note,
+               pair_ms=b3["pair_ms"],
+               note=bwd_note + "; " + ast_note + "; " + dec0_note,
+               dec0_pair_ms=d32["B3"][2], **dec0("B3", 1, 2),
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[3],
                waveform_launches=wave_launches[3],

@@ -206,16 +206,18 @@ def test_pretrained_head_kernel_reinitialized(corpus, tmp_path):
     (["--eval", "--finetuned_model_path", "{pth}", "--flag_extract_features",
       "true", "--extract_features_path", "{feats}"], "A7"),
     (["--device_frontend", "true", "--freqm", "0", "--timem", "0"], "A8"),
-    (["--device_dataset", "true"], "A10"),
+    (["--device_dataset", "true", "--roll_mag_aug", "true"], "A10"),
     (["--model_axis", "2"], "A11"),
 ])
 def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
-    """A10 and A11 are refused, naming their ROADMAP items.  The flags of A7
-    and A8, refused until they were ported, now run: feature extraction
+    """A11 is refused, naming its ROADMAP item.  The flags of A7, A8 and
+    A10, refused until they were ported, now run: feature extraction
     writes every block's features for the analysis (held against the JAX
-    CLI in test_torch_features.py), and the device frontend trains beside
+    CLI in test_torch_features.py), the device frontend trains beside
     tpat_tpu.cli.finetune with the same flags (without SpecAug or noise):
-    the log within rtol 1e-4."""
+    the log within rtol 1e-4, and --device_dataset true takes the device
+    cache, which refuses a train set under roll-mag with its reason (its
+    runs are held in test_torch_device_cache.py)."""
     if item == "A7":
         pth, feats = tmp_path / "model.pth", tmp_path / "feats"
         _pretrained_pth(pth)
@@ -238,6 +240,11 @@ def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
         return
     if item == "A8":
         _finetune_beside_jax(corpus, tmp_path, monkeypatch, flags)
+        return
+    if item == "A10":
+        with pytest.raises(ValueError, match="train set cannot be cached: "
+                                             "roll-mag"):
+            _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *flags))
         return
     with pytest.raises(NotImplementedError, match=item):
         _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *flags))

@@ -30,7 +30,8 @@ MODULES = (
     "tpat_tpu_torch.cli.create_voxceleb1_csv, tpat_tpu_torch.cli.run_ast, "
     "tpat_tpu_torch.analysis, tpat_tpu_torch.analysis.stats, "
     "tpat_tpu_torch.analysis.extract_stats, tpat_tpu_torch.analysis.reducers, "
-    "tpat_tpu_torch.utils.features, tpat_tpu_torch.ops.frontend"
+    "tpat_tpu_torch.utils.features, tpat_tpu_torch.ops.frontend, "
+    "tpat_tpu_torch.cli.pretrain, tpat_tpu_torch.data.device_cache"
 )
 FORBIDDEN = ("jax", "flax", "tpat_tpu")  # top-level package names
 LIBRARY_ATTENTION = "scaled_dot_product_attention"

@@ -245,12 +245,6 @@ def test_init_matches_jax_layout():
     assert not pm.pos_embed.requires_grad and not pm.decoder_pos_embed.requires_grad
 
 
-def test_decoder_mode_0_is_not_ported():
-    with pytest.raises(NotImplementedError, match="decoder_mode=0"):
-        mae.MaskedAutoencoderViT(mae.MAEConfig(**dict(SMALL, decoder_mode=0,
-                                                      target_length=128)))
-
-
 def test_config_matches_jax():
     for f in dataclasses.fields(jmae.MAEConfig):
         assert getattr(mae.MAEConfig(), f.name) == f.default, f.name

@@ -183,7 +183,8 @@ def test_wrapper_validates_before_dispatch():
         with pytest.raises(ValueError, match="kv_valid"):
             qa.fused_qkv_attention_prefix(qkv, kv, 2, "patch_mean", 1)
     assert qa.supports(12, 64, 257) and qa.supports(16, 80, 513)
-    assert not qa.supports(4, 32, 17) and not qa.supports(12, 64, 0)
+    assert qa.supports(4, 32, 17)  # the MAE's plain decoder's head_dim
+    assert not qa.supports(4, 48, 17) and not qa.supports(12, 64, 0)
     assert qa.launches == 0
 
 

@@ -42,11 +42,18 @@ tpat_tpu_torch.analysis.extract_stats``; the directory must not exist.
 SpecAug, normalisation and noise run on the device at the head of each
 step and eval forward (``ops/frontend.py``).
 
+``--device_dataset`` (``data/device_cache.py``): a set whose items are a
+pure function of their index (no host-side augmentation) is copied to the
+device once and each batch is an index gather there.  'auto' (the default)
+caches exactly the eligible sets (under ft_esc50.sh's flags the eval set:
+``--roll_mag_aug true`` rules the train set out), 'true' requires both and
+raises the reason where one is not eligible, 'false' streams both from the
+host loader.
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, each naming its ROADMAP item: ``--device_dataset true``
-(A10; 'auto' means the host loader), and ``--model_axis`` > 1 or more than
-one process (A11).
+raises.  Refused, naming its ROADMAP item: ``--model_axis`` > 1 or more
+than one process (A11).
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from tpat_tpu_torch.cli import card_device, str2bool, world_size
 from tpat_tpu_torch.data.datasets import (
     AudiosetDataset, VoxCeleb1Dataset, make_name_dict,
 )
+from tpat_tpu_torch.data.device_cache import maybe_device_cached
 from tpat_tpu_torch.data.loader import DataLoader
 from tpat_tpu_torch.data.sampler import EpochShardSampler
 from tpat_tpu_torch.engine import evaluate as eval_lib
@@ -138,9 +146,13 @@ def get_args_parser():
                         "(ops/frontend.py)")
     p.add_argument("--device_dataset", default="auto",
                    choices=["auto", "true", "false"],
-                   help="a device-resident dataset cache: not ported "
-                        "(ROADMAP A10); 'auto' and 'false' use the host "
-                        "loader")
+                   help="device-resident dataset cache "
+                        "(data/device_cache.py): a set whose items are a "
+                        "pure function of their index (no host-side "
+                        "augmentation) is copied to the device once and "
+                        "each batch is an index gather there; 'auto' caches "
+                        "the eligible sets, 'true' requires it (raising the "
+                        "reason), 'false' streams from the host loader")
     # run control
     p.add_argument("--output_dir", default="./output_dir")
     p.add_argument("--ramdisk_dir", default="")
@@ -208,8 +220,6 @@ def refuse_unported(args):
     """Raise for a flag whose feature the port does not have yet, naming the
     ROADMAP item that brings it."""
     refused = [
-        (args.device_dataset == "true",
-         "--device_dataset true (the device dataset cache)", "A10"),
         (args.model_axis > 1, "--model_axis > 1 (tensor parallelism)", "A11"),
         (world_size() > 1, "more than one process (data parallelism)", "A11"),
     ]
@@ -266,14 +276,24 @@ def build_everything(args, device):
             args.data_eval, data_cfg, args.label_csv, train=False,
             return_waveform=wf,
         )
+    dd_mode = args.device_dataset
     loader_train = None
     if ds_train is not None:
-        loader_train = DataLoader(
-            ds_train, args.batch_size,
-            sampler=EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed),
+        sampler = EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed)
+        loader_train = maybe_device_cached(
+            ds_train, args.batch_size, sampler=sampler,
+            num_workers=args.num_workers, drop_last=True, device=device,
+            mode=dd_mode, label="train set",
+        ) or DataLoader(
+            ds_train, args.batch_size, sampler=sampler,
             num_workers=args.num_workers, drop_last=True,
         )
-    loader_val = DataLoader(
+    # (the JAX CLI streams the eval set under --dist_eval across
+    # processes; more than one process is refused here)
+    loader_val = maybe_device_cached(
+        ds_val, args.batch_size, shuffle=False, num_workers=args.num_workers,
+        drop_last=False, device=device, mode=dd_mode, label="eval set",
+    ) or DataLoader(
         ds_val, args.batch_size, shuffle=False,
         num_workers=args.num_workers, drop_last=False,
     )

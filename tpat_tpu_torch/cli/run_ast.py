@@ -40,10 +40,16 @@ writes each eval batch's features as ``feats/{key}.{batch:04d}.pth``
 SpecAug, normalisation and noise run on the device, then the transpose to
 AST's orientation (``ops/frontend.py``).
 
+``--device_dataset`` (``data/device_cache.py``, as in ``cli/finetune.py``):
+'auto' copies the validation set, and the train set where no host-side
+augmentation draws (no mixup, and SpecAug and noise off or on the device
+under ``--device_frontend true``), to the device once; 'true' requires it
+for both and raises the reason; 'false' streams.  The speechcommands test
+split always streams, as in JAX.
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, each naming its ROADMAP item: ``--device_dataset true``
-(A10; 'auto' means the host loader) and more than one process (A11).
+raises.  Refused, naming its ROADMAP item: more than one process (A11).
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from tpat_tpu_torch import config as cfg_lib
 from tpat_tpu_torch.cli import card_device, str2bool, world_size
 from tpat_tpu_torch.cli.finetune import write_args_yaml
 from tpat_tpu_torch.data.datasets import AudiosetDataset
+from tpat_tpu_torch.data.device_cache import maybe_device_cached
 from tpat_tpu_torch.data.loader import DataLoader
 from tpat_tpu_torch.data.sampler import EpochShardSampler
 from tpat_tpu_torch.engine import evaluate as eval_lib
@@ -151,9 +158,8 @@ def get_parser():
                         "emits raw waveforms)")
     p.add_argument("--device_dataset", default="auto",
                    choices=["auto", "true", "false"],
-                   help="a device-resident dataset cache: not ported "
-                        "(ROADMAP A10); 'auto' and 'false' use the host "
-                        "loader")
+                   help="device-resident dataset cache (data/device_cache.py;"
+                        " see cli/finetune.py --device_dataset)")
     return p
 
 
@@ -161,8 +167,6 @@ def refuse_unported(args):
     """Raise for a flag whose feature the port does not have yet, naming the
     ROADMAP item that brings it."""
     refused = [
-        (args.device_dataset == "true",
-         "--device_dataset true (the device dataset cache)", "A10"),
         (world_size() > 1, "more than one process (data parallelism)", "A11"),
     ]
     for hit, what, item in refused:
@@ -253,9 +257,13 @@ def initial_state_dict(args, model_cfg):
 def ast_batches(loader, waveform: bool = False):
     """The loader's (B, 1, T, F) batches in AST's (B, 1, F, T) orientation
     (``ast_models.py:434-436``); waveform batches as they come (the
-    preprocess transposes after the device frontend)."""
+    preprocess transposes after the device frontend); a batch of the device
+    cache is transposed on the device."""
     for x, y, _ids in loader:
-        yield (x if waveform else np.ascontiguousarray(x.transpose(0, 1, 3, 2))), y
+        if not waveform:
+            x = (x.transpose(2, 3).contiguous() if isinstance(x, torch.Tensor)
+                 else np.ascontiguousarray(x.transpose(0, 1, 3, 2)))
+        yield x, y
 
 
 def _preprocess(args, data_cfg):
@@ -276,12 +284,19 @@ def _score(args, model, loader, device, data_cfg, metrics=None,
     return stats["mAP"]
 
 
-def _eval_loader(args, path, data_cfg):
-    return DataLoader(
-        AudiosetDataset(path, data_cfg, args.label_csv, train=False,
-                        return_waveform=bool(args.device_frontend)),
-        args.batch_size, shuffle=False, num_workers=args.num_workers,
-    )
+def _eval_loader(args, path, data_cfg, device=None):
+    """The eval loader of ``path``: device-resident under
+    ``--device_dataset`` where ``device`` is given (the validation set),
+    else the host loader."""
+    ds = AudiosetDataset(path, data_cfg, args.label_csv, train=False,
+                         return_waveform=bool(args.device_frontend))
+    cached = None
+    if device is not None:
+        cached = maybe_device_cached(
+            ds, args.batch_size, shuffle=False, num_workers=args.num_workers,
+            device=device, mode=args.device_dataset, label="eval set")
+    return cached or DataLoader(ds, args.batch_size, shuffle=False,
+                                num_workers=args.num_workers)
 
 
 def _load_model(path, model_cfg, device) -> AudioViT:
@@ -334,7 +349,8 @@ def main(args, device="cuda") -> float:
     device = card_device(device)
     np.random.seed(args.seed)
     data_cfg, model_cfg = configs(args)
-    loader_val = _eval_loader(args, args.data_val or args.data_eval, data_cfg)
+    loader_val = _eval_loader(args, args.data_val or args.data_eval, data_cfg,
+                              device)
     os.makedirs(args.exp_dir or ".", exist_ok=True)
     if args.eval:
         return run_eval(args, model_cfg, data_cfg, loader_val, device)
@@ -343,9 +359,13 @@ def main(args, device="cuda") -> float:
     ds_train = AudiosetDataset(args.data_train, data_cfg, args.label_csv,
                                train=True, seed=args.seed,
                                return_waveform=bool(args.device_frontend))
-    loader_train = DataLoader(
-        ds_train, args.batch_size,
-        sampler=EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed),
+    sampler = EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed)
+    loader_train = maybe_device_cached(
+        ds_train, args.batch_size, sampler=sampler,
+        num_workers=args.num_workers, drop_last=True, device=device,
+        mode=args.device_dataset, label="train set",
+    ) or DataLoader(
+        ds_train, args.batch_size, sampler=sampler,
         num_workers=args.num_workers, drop_last=True,
     )
     drop_loc = model_cfg.drop_loc

@@ -7,9 +7,12 @@
 //
 // Tiles are 64 rows of one head's D values (D a multiple of 16), bf16 in
 // shared memory with rows padded to kLd = D + 8 values: row r starts 16*r
-// bytes (mod 128) further along the banks for D = 64 (144-byte rows) and
-// for D = 80 (176-byte rows: 48*r mod 128), so the eight row addresses of
-// one ldmatrix phase hit eight distinct 16-byte bank groups.
+// bytes (mod 128) further along the banks for D = 64 (144-byte rows), 48*r
+// for D = 80 (176-byte rows) and 80*r for D = 32 (80-byte rows: 0, 80, 32,
+// 112, 64, 16, 96, 48 for r = 0..7), so the eight row addresses of one
+// ldmatrix phase hit eight distinct 16-byte bank groups.  A 64-row tile is
+// 64 * D / 8 16-byte cp.async chunks, D / 16 per thread of a 128-thread CTA
+// (2 at D = 32; 5 at D = 80).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), lane = 4 g + t:
 //   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g,

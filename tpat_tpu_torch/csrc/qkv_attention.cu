@@ -23,7 +23,10 @@
 // and 2C, head h at h*D) and out is written as (B, N, C): no permute on
 // either side.
 //
-// Both instantiations: one CTA = one (b, h, tile of 64 query rows).  Pass 1
+// Head dims 32 (the MAE's plain decoder: 512 wide, 16 heads), 64 (ViT-B) and
+// 80 (ViT-H), in both bodies below.
+//
+// Both bodies: one CTA = one (b, h, tile of 64 query rows).  Pass 1
 // walks K once and keeps each row's running max and denominator (online
 // rescaling), so the softmax is exact without holding a 64 x N logit tile;
 // pass 2 walks K and V again, recomputes the same logits (same code, same
@@ -473,12 +476,18 @@ extern "C" int tpat_qkv_attention_fwd(const void* qkv, void* out, void* colsum,
     return cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 32)
+    return launch<float, 32>(qkv, out, colsum, batch, n, num_heads, mode,
+                             extra, kv_valid, scale, s);
   if (dtype == 0 && head_dim == 64)
     return launch<float, 64>(qkv, out, colsum, batch, n, num_heads, mode,
                              extra, kv_valid, scale, s);
   if (dtype == 0 && head_dim == 80)
     return launch<float, 80>(qkv, out, colsum, batch, n, num_heads, mode,
                              extra, kv_valid, scale, s);
+  if (dtype == 1 && head_dim == 32)
+    return launch_bf16<32>(qkv, out, colsum, batch, n, num_heads, mode, extra,
+                           kv_valid, scale, s);
   if (dtype == 1 && head_dim == 64)
     return launch_bf16<64>(qkv, out, colsum, batch, n, num_heads, mode, extra,
                            kv_valid, scale, s);

@@ -57,6 +57,8 @@
 // tensor-core f32 would be TF32, so it stays on exact FMA loops with 4 x 4
 // register micro-tiles over f32 tiles in shared memory; its rows kernel
 // sweeps the keys three times (m and l; delta; dlog and dq).
+// Both bodies are instantiated at head dims 32 (the MAE's plain decoder),
+// 64 and 80.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -824,8 +826,10 @@ int dispatch(bool rows, const void* qkv, const void* dout, const void* ds,
                static_cast<float*>(stats), n, num_heads, mode, extra,
                kv_valid, scale};
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 32) return launch<float, 32>(rows, a, batch, s);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(rows, a, batch, s);
   if (dtype == 0 && head_dim == 80) return launch<float, 80>(rows, a, batch, s);
+  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(rows, a, batch, s);
   if (dtype == 1 && head_dim == 64) return launch_bf16<64>(rows, a, batch, s);
   if (dtype == 1 && head_dim == 80) return launch_bf16<80>(rows, a, batch, s);
   return cudaErrorInvalidValue;

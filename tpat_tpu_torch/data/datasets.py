@@ -96,6 +96,11 @@ class AudiosetDataset:
     ):
         with open(manifest_json) as f:
             self.data: List[dict] = json.load(f)["data"]
+        # the dataset's identity for the device cache's registry
+        # (data/device_cache.py): the same manifest and label map give the
+        # same items
+        self.source = (os.path.abspath(manifest_json),
+                       os.path.abspath(label_csv))
         self.cfg = data_cfg
         self.return_waveform = return_waveform
         if return_waveform and num_samples is None:
@@ -226,6 +231,7 @@ class VoxCeleb1Dataset:
         if subset not in ("train", "test"):
             raise ValueError(f"subset must be 'train' or 'test', got {subset!r}")
         self.root = root
+        self.source = (os.path.abspath(root), subset)  # see AudiosetDataset
         self.cfg = data_cfg
         self.return_waveform = return_waveform
         if return_waveform and num_samples is None:

@@ -6,7 +6,10 @@ The eval forward is the static ``AudioViT.__call__`` in eval mode under
 card.  A ragged last batch is padded to the batch size with copies of its
 last row and the padding trimmed from the logits, as the JAX engine pads
 to its compiled shape; the port needs no fixed shape, but keeps the
-padding so the forward sees the same batches.  Logits are fetched one
+padding so the forward sees the same batches.  Batches come as numpy
+arrays (the host loader) or as tensors already on the device (the device
+dataset cache, ``data/device_cache.py``): those are used where they lie,
+padded there, and only their labels are read back.  Logits are fetched one
 batch behind, so the device computes batch b while the host collects b-1.
 
 The ablations run as in JAX: ``custom_rank`` through the static forward;
@@ -91,6 +94,11 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _labels(y) -> np.ndarray:
+    """A batch's targets as numpy, from the host loader or the device."""
+    return _host(y) if isinstance(y, torch.Tensor) else np.asarray(y)
+
+
 def _run_batches(
     eval_step,
     batches: Iterable,
@@ -112,13 +120,13 @@ def _run_batches(
             logits, kept = out
             keep = _host(kept[:n]) > 0
             all_logits.append(_host(logits[:n])[keep])
-            all_targets.append(np.asarray(y)[:n][keep])
+            all_targets.append(_labels(y)[:n][keep])
             return
         if feature_writer is not None:
             logits, features = out
             features = {k: _host(v[:n]) for k, v in features.items()}
             # trim before the argmax: rows past n are padding
-            y_n = np.asarray(y)[:n]
+            y_n = _labels(y)[:n]
             features["labels"] = (
                 [index_to_name[int(i)] for i in np.argmax(y_n, axis=1)]
                 if index_to_name is not None else ["temp"] * n
@@ -127,7 +135,7 @@ def _run_batches(
         else:
             logits = out
         all_logits.append(_host(logits[:n]))
-        all_targets.append(np.asarray(y)[:n])
+        all_targets.append(_labels(y)[:n])
 
     for bidx, item in enumerate(batches):
         x, y = item[0], item[1]

@@ -18,10 +18,14 @@ holds the two equal after a step).
 Randomness: the JAX step folds the step index into its key; here each step
 draws its masking noise and the decoder's meta-MLP dropout from a
 ``torch.Generator`` seeded from ``(seed, step)`` (``step_generator``).
+
+``check_epoch_loss`` is the pretraining CLI's stop on a non-finite epoch loss
+(``cli/pretrain.py``, as ``tpat_tpu/cli/pretrain.py`` stops).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -77,6 +81,16 @@ def mae_lr_fn(
         )
 
     return lr_fn
+
+
+def check_epoch_loss(mean_loss: float, epoch: int) -> float:
+    """``mean_loss``, or ``FloatingPointError`` when it is not finite
+    (``engine_finetune.py:108-110`` semantics)."""
+    if not math.isfinite(mean_loss):
+        raise FloatingPointError(
+            f"Non-finite loss in epoch {epoch}, stopping pretraining"
+        )
+    return mean_loss
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:

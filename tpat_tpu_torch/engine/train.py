@@ -20,7 +20,10 @@ the head of every step, ``preprocess(x, generator, specaug, train=True)``,
 with SpecAug only in the dense phase (the reference switches the
 augmentations off once the shrink starts); with a preprocess, the hybrid
 anneal's t = 0 point stays a hybrid step instead of taking the dense one,
-which would turn SpecAug back on.  The JAX package's compiled-step memo and
+which would turn SpecAug back on.  Batches come as numpy arrays (the host
+loader, copied to the device at the step) or as f32 tensors already on the
+device (the device dataset cache, ``data/device_cache.py``), which the step
+uses where they lie.  The JAX package's compiled-step memo and
 its mesh and tensor parallelism have no counterpart here.
 """
 

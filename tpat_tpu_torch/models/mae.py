@@ -1,9 +1,9 @@
 """Masked autoencoder for spectrograms, the pretraining model (port of
 ``tpat_tpu/models/mae.py``).
 
-A ViT encoder on the visible patches and a shifted-window decoder over the
-de-shuffled full grid, with a masked-patch MSE loss (optionally against
-per-patch normalised pixels).  Masking flavours (``mae.py:486-535``):
+A ViT encoder on the visible patches and a decoder over the de-shuffled
+full sequence, with a masked-patch MSE loss (optionally against per-patch
+normalised pixels).  Masking flavours (``mae.py:486-535``):
 
 - ``random_masking``: keep ``int(L * (1 - ratio))`` tokens by argsort of
   per-token noise;
@@ -14,17 +14,24 @@ Both take their noise as tensors, so a test can hand the port the JAX
 package's noise; the forward draws it from the caller's ``torch.Generator``
 when none is given.
 
-The decoder is ``decoder_mode=1`` only: 16 swin_v2_cr blocks (timm's
-``SwinTransformerV2CrBlock`` as the reference constructs it) with scaled
-cosine attention, clamped learned per-head logit scales, a log-CPB meta-MLP
-relative-position bias (with its hidden dropout of 0.125 in training) and
-V2 res-post-norm residuals.  ``window_attention_impl`` picks the attention:
-'fused' (the dense kernel, ``ops/window_attention.py``), 'banded' (the
-block-diagonal kernel in window-major order), 'xla' (the partitioned-window
-reference path, in plain PyTorch), or 'auto', which takes dense where the
-JAX package's criterion admits it (the ESC-50 grid, N = 256), else banded
-(the AudioSet grid, N = 512), else 'xla'.  The plain transformer decoder
-(``decoder_mode=0``) is not ported yet and raises.
+Decoders (``decoder_mode``):
+
+- 0: plain transformer blocks (``models/vit.py::Block`` at keep 1.0,
+  xavier-uniform linears) over [CLS + the unshuffled tokens]; the
+  prediction drops the CLS row (``mae.py:453-457, 576-588``).  At the
+  reference decoder (512 wide, 16 heads) their attention runs the
+  packed-qkv kernels (``ops/qkv_attention.py``) at head_dim 32, without
+  scores.
+- 1: 16 swin_v2_cr blocks (timm's ``SwinTransformerV2CrBlock`` as the
+  reference constructs it) over the patch grid, with scaled cosine
+  attention, clamped learned per-head logit scales, a log-CPB meta-MLP
+  relative-position bias (with its hidden dropout of 0.125 in training)
+  and V2 res-post-norm residuals.  ``window_attention_impl`` picks the
+  attention: 'fused' (the dense kernel, ``ops/window_attention.py``),
+  'banded' (the block-diagonal kernel in window-major order), 'xla' (the
+  partitioned-window reference path, in plain PyTorch), or 'auto', which
+  takes dense where the JAX package's criterion admits it (the ESC-50
+  grid, N = 256), else banded (the AudioSet grid, N = 512), else 'xla'.
 
 The encoder blocks are ``models/vit.py::Block`` at keep 1.0, so they run the
 attention kernels of the finetune path with no scores.  Parameter names are
@@ -395,11 +402,6 @@ class MaskedAutoencoderViT(nn.Module):
         device: Optional[torch.device] = None,
     ):
         super().__init__()
-        if cfg.decoder_mode != 1:
-            raise NotImplementedError(
-                "decoder_mode=0 (the plain transformer decoder) is not "
-                "ported yet; the port has the shifted-window decoder only"
-            )
         self.cfg = cfg
         enc_cfg = cfg.encoder_vit_config()
         dec_cfg = cfg.decoder_vit_config()
@@ -418,12 +420,16 @@ class MaskedAutoencoderViT(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, 1, dd))
         self.decoder_pos_embed = nn.Parameter(torch.zeros(1, p + 1, dd),
                                               requires_grad=cfg.pos_trainable)
-        self.decoder_blocks = nn.ModuleList(
-            SwinBlock(dec_cfg, cfg.grid, cfg.window_size,
-                      (0, 0) if i % 2 == 0 else (2, 0),
-                      cfg.window_attention_impl)
-            for i in range(cfg.decoder_depth)
-        )
+        if cfg.decoder_mode == 1:
+            self.decoder_blocks = nn.ModuleList(
+                SwinBlock(dec_cfg, cfg.grid, cfg.window_size,
+                          (0, 0) if i % 2 == 0 else (2, 0),
+                          cfg.window_attention_impl)
+                for i in range(cfg.decoder_depth)
+            )
+        else:
+            self.decoder_blocks = nn.ModuleList(
+                Block(dec_cfg) for _ in range(cfg.decoder_depth))
         self.decoder_norm = LayerNorm(dd, 1e-6, dt)
         # the prediction head stays f32: its output feeds the f32 loss
         self.decoder_pred = Linear(dd, cfg.patch_size ** 2,
@@ -563,10 +569,14 @@ class MaskedAutoencoderViT(nn.Module):
         x_ = take_rows(torch.cat([x[:, 1:], mask_tokens], dim=1), ids_restore)
         x = torch.cat([x[:, :1], x_], dim=1)
         x = x + self._pos(self.decoder_pos_embed).to(x.dtype)
-        x = x[:, 1:]  # the swin decoder drops CLS (models_mae.py:370-373)
+        if self.cfg.decoder_mode == 1:
+            x = x[:, 1:]  # the swin decoder drops CLS (models_mae.py:370-373)
+            for blk in self.decoder_blocks:
+                x = blk(x, deterministic, generator)
+            return self.decoder_pred(self.decoder_norm(x))
         for blk in self.decoder_blocks:
-            x = blk(x, deterministic, generator)
-        return self.decoder_pred(self.decoder_norm(x))
+            x, _ = blk(x, 1.0, False)
+        return self.decoder_pred(self.decoder_norm(x))[:, 1:]
 
     def loss(self, imgs: torch.Tensor, pred: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:

@@ -50,7 +50,7 @@ prefix_launches = 0
 bwd_rows_launches = 0
 bwd_cols_launches = 0
 
-HEAD_DIMS = (64, 80)  # the kernels' instantiations
+HEAD_DIMS = (32, 64, 80)  # the kernels' instantiations
 _MODES = {None: 0, "patch_mean": 1, "cls": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -32,7 +32,14 @@ The AST importers take the same path (``ast_models.py:273-381``):
   trunk with the RGB patch conv summed to one channel and the square pos
   grid cut or stretched to the audio grid; both DeiT heads are dropped.
 
-The MAE importer (``mae_params_from_state_dict``) waits for ROADMAP A9.
+The MAE importer, ``mae_state_dict_for``, is the counterpart of
+``mae_params_from_state_dict``: a reference full-MAE ``.pth``
+(``models_mae.py``: encoder and decoder, no surgery) -> the state dict
+``MaskedAutoencoderViT.load_state_dict(strict=True)`` takes, the decoder
+flavour told by ``decoder_blocks.0.attn.logit_scale`` and both depths read
+from the keys; a checkpoint whose flavour, depths or grid differ from the
+model's config is refused with the mismatch named (pretraining resumes at
+the checkpoint's own geometry).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import torch
 
 from tpat_tpu_torch.config import ViTConfig
 from tpat_tpu_torch.models import pos_embed as pe
+from tpat_tpu_torch.models.mae import MAEConfig
 
 _BLOCK_KEY = re.compile(
     r"blocks\.\d+\.(norm1|norm2|attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2)"
@@ -145,6 +153,58 @@ def deit_state_dict_for(
         num_extra_tokens=2,
     )
     out["pos_embed"] = _ast_pos(pos, cfg, "DeiT")
+    return out
+
+
+_MAE_TENSORS = ("cls_token", "pos_embed", "mask_token", "decoder_pos_embed")
+_MAE_MODULES = ("patch_embed.proj", "norm", "decoder_embed", "decoder_norm",
+                "decoder_pred")
+_PLAIN_BLOCK = ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
+                "mlp.fc2")
+_SWIN_BLOCK = _PLAIN_BLOCK + ("attn.meta_mlp.fc1", "attn.meta_mlp.fc2")
+
+
+def _depth_of(sd: Mapping[str, torch.Tensor], stem: str) -> int:
+    ids = {int(m.group(1)) for k in sd
+           if (m := re.match(rf"{re.escape(stem)}\.(\d+)\.", k))}
+    return max(ids) + 1 if ids else 0
+
+
+def mae_state_dict_for(
+    sd: Mapping[str, torch.Tensor], cfg: MAEConfig
+) -> Dict[str, torch.Tensor]:
+    """A reference full-MAE state dict -> the state dict
+    ``MaskedAutoencoderViT(cfg).load_state_dict(strict=True)`` takes (the
+    counterpart of ``mae_params_from_state_dict``).  The swin decoder's
+    buffers the reference saves (relative coordinates, shift masks) are
+    left out: the model builds its own."""
+    mode = 1 if "decoder_blocks.0.attn.logit_scale" in sd else 0
+    depth = _depth_of(sd, "blocks")
+    dec_depth = _depth_of(sd, "decoder_blocks")
+    rows = sd["pos_embed"].shape[1] - 1
+    for what, got, want in (
+            ("decoder_mode", mode, cfg.decoder_mode),
+            ("depth", depth, cfg.depth),
+            ("decoder_depth", dec_depth, cfg.decoder_depth),
+            ("patches (grid)", rows, cfg.num_patches)):
+        if got != want:
+            raise ValueError(
+                f"MAE checkpoint has {what} {got}, the model {want} "
+                f"(grid {cfg.grid}, target_length {cfg.target_length})"
+            )
+    out = {k: _f32(sd[k]) for k in _MAE_TENSORS}
+    modules = list(_MAE_MODULES)
+    modules += [f"blocks.{i}.{m}" for i in range(depth) for m in _PLAIN_BLOCK]
+    for i in range(dec_depth):
+        block = _SWIN_BLOCK if mode == 1 else _PLAIN_BLOCK
+        modules += [f"decoder_blocks.{i}.{m}" for m in block]
+        if mode == 1:
+            key = f"decoder_blocks.{i}.attn.logit_scale"
+            out[key] = _f32(sd[key])
+    for m in modules:
+        for leaf in ("weight", "bias"):
+            if f"{m}.{leaf}" in sd:
+                out[f"{m}.{leaf}"] = _f32(sd[f"{m}.{leaf}"])
     return out
 
 
