@@ -189,7 +189,33 @@ printing a result:
     ``--roll_mag_aug false`` (both sets cached): which sets were cached, the
     per-epoch losses within rel 1e-6 and the accuracies equal, the eval ms
     per forward, the loader-wait share and the first-step excess;
-25. the kernels line, with the entries ``layernorm_fwd``,
+25. data parallelism across processes, two ranks on the one card over gloo
+    (NCCL refuses two ranks on one device), started once by
+    ``torch.distributed.run`` as ``chip_smoke.py --dp-rank <tasks> <dir>``
+    to run 25.1, 25.3 and 25.4 in turn:
+    25.1 phase 8's configuration (ViT-B/16 ESC-50, bf16, keep 0.7 at
+    (3, 6, 9), drop-path 0.1) as one dense step with 2D masking 0.3, one
+    hybrid step at bucket 0.8 and one static step, each rank on its 64 rows
+    of three seeded b128 global batches, against one process on the
+    b128 batches: each rank's B1/B2/B3 launches equal to the one process's,
+    the per-step losses and the parameters within ``DP_TOL``, the kept
+    tokens equal in every row without a tie; then the same in f32 at depth
+    4; the step ms of each rank and the gradient all-reduce's ms;
+    25.2 two static b64 steps inside a one-rank NCCL group on the card (the
+    weights' broadcast and the gradients' all-reduce on the NCCL backend)
+    equal bit for bit to the steps without a group;
+    25.3 phase 20's run (ft_esc50.sh's flags, phase 20's corpus) at b64 per
+    rank with ``--dist_eval``: each rank's launches equal to phase 20's and
+    each step's to phase 8's walk of its kind, each eval reading every clip
+    once across the ranks and gathering its 200 rows, equal parameters on
+    both ranks, writes only from rank 0 (an audit hook on each rank), the
+    logged phases, and the best acc1 equal to a one-process ``--eval`` of
+    best_model; the step ms, loader-wait share and epoch ms of each rank
+    beside phase 20's;
+    25.4 ``run_ast`` (phase 21's flags and corpus) and ``pretrain`` (phase
+    23's, decoder 1) on two ranks, two epochs each: equal parameters,
+    rank-0-only files, the kernels launched on both ranks;
+26. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
     ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
@@ -215,7 +241,8 @@ the serving, training and pretrain paths, and the probes' mains), error,
 times and bound, and for the attention kernels B1-B3 ``finetune_launches``
 and ``ast_launches``, their launches in phase 20's and phase 21's runs,
 ``waveform_launches`` and ``pretrain_cli_launches``, their launches in
-phases 22 and 23 (also counted in ``launches``), ``ast_ms``, their time per
+phases 22 and 23, and (B1-B3 and the window kernels) ``dp_launches``, the
+summed launches of phase 25's ranks (all also counted in ``launches``), ``ast_ms``, their time per
 AST hybrid train step, and for B1/B3 the ``dec0_*`` fields, their head_dim
 32 calls per decoder-0 pretrain step (ms, plain, SDPA, bound, launches);
 B2's ``noscore``
@@ -233,6 +260,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -2500,7 +2528,8 @@ def finetune_path(tmp, walks, phase8_ms, smi):
     log(f"finetune --eval of best_model: acc1 {stats['acc1']:.4f} (logged "
         f"{logged['test_acc1']:.4f}), loss {stats['loss']:.6f} (logged "
         f"{logged['test_loss']:.6f}), launches {eval_launches}")
-    summary = dict(_loader_summary(epochs), eval_ms=float(np.median(eval_ms)))
+    summary = dict(_loader_summary(epochs), eval_ms=float(np.median(eval_ms)),
+                   epoch_ms=[rec["wall_ms"] for rec in epochs])
     del calls, epochs
     torch.cuda.empty_cache()
     return launches, paths, summary
@@ -3710,6 +3739,619 @@ def device_cache_path(tmp, paths, smi):
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: data parallelism across processes on the card
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2  # two processes on the one card, over gloo (NCCL refuses that)
+DP_BATCH = 64  # rows per rank: ft_esc50.sh's b128 as two ranks' shards
+DP_STEPS = ("dense_mask2d", "hybrid_0.8", "static")  # profile_train's variants
+DP_SEED = 25
+DP_DEVICE = "cuda"
+DP_TIMEOUT = 420  # seconds the spawn of ranks may take before it is killed
+# two ranks vs one process over the same global batches, per-step loss and
+# final parameters (the L2 of the difference over the L2 of how far the
+# parameters moved: AdamW's step on a gradient entry near 0 follows the
+# summation order, so an entrywise bound would not hold); kept tokens equal
+# in every row without a tie: a row whose gap between its k-th and
+# (k+1)-th score (one process) exceeds twice the largest difference of its
+# scores between the two runs, so that no reordering across the cut is
+# possible
+DP_TOL = {"bfloat16": {"loss_rtol": BF16_TOL, "param_rel": 0.1},
+          "float32": {"loss_rtol": 1e-4, "param_rel": 1e-3}}
+DP_DEPTH = {"bfloat16": (12, (3, 6, 9)), "float32": (4, (1, 2, 3))}
+DP_WRITE_EVENTS = ("os.mkdir", "os.rmdir", "os.remove", "shutil.copyfile",
+                   "os.rename")
+
+
+def _dp_configs(dtype, world):
+    """ft_esc50's configuration (phase 8's) at ``dtype`` and phase 25's depth,
+    drop-path 0.1, ``DP_BATCH`` rows per rank of ``world``."""
+    depth, drop_loc = DP_DEPTH[dtype]
+    cfg, tc = _train_configs(dtype, 0.1)
+    cfg = dataclasses.replace(cfg, depth=depth, drop_loc=drop_loc)
+    tc = dataclasses.replace(tc, drop_loc=drop_loc,
+                             batch_size=DP_BATCH * (DP_RANKS // world),
+                             num_hosts=world)
+    return cfg, tc
+
+
+def _kept_ids(picked, kept, num_patches):
+    """Each drop block's (kept patch ids sorted per row: the top-k indices
+    composed through the earlier gathers, the first ``kept`` of them in the
+    hybrid step; the patch ids of the block's input rows; its scores;
+    the kept count)."""
+    ids, out = None, []
+    for (scores, idx), k in zip(picked, kept):
+        if ids is None:
+            ids = torch.arange(num_patches, device=idx.device).expand(
+                idx.shape[0], -1)
+        pos = ids
+        ids = ids.gather(1, idx)
+        k = idx.shape[1] if k is None else k
+        out.append((ids[:, :k].sort(dim=1).values.cpu(), pos.cpu(),
+                    scores.float().cpu(), k))
+    return out
+
+
+def _kept_rows_equal(one, mine, num_patches):
+    """(rows without a tie, tied rows, tied rows keeping another token) of
+    one rank's drop block against the one process's rows of it; raises if
+    a row without a tie keeps another token.  A row is without a tie when
+    the same tokens enter the block in both runs and the one process's gap
+    at the cut exceeds twice the largest difference of the row's scores
+    between the runs."""
+    (ids_o, pos_o, s_o, k), (ids_r, pos_r, s_r, _) = one, mine
+
+    def by_id(pos, sc):
+        return torch.full((pos.shape[0], num_patches), math.nan).scatter(
+            1, pos, sc)
+
+    same_in = (pos_o.sort(1).values == pos_r.sort(1).values).all(1)
+    noise = (by_id(pos_o, s_o) - by_id(pos_r, s_r)).abs().nan_to_num(
+        0.0).amax(1)
+    top = s_o.sort(1, descending=True).values
+    gap = (top[:, k - 1] - top[:, k] if k < top.shape[1]
+           else torch.full((top.shape[0],), math.inf))
+    sure = same_in & (gap > 2 * noise)
+    same = (ids_o == ids_r).all(1)
+    if not bool(same[sure].all()):
+        raise AssertionError(f"{int((~same & sure).sum())} rows without a "
+                             "tie keep other tokens")
+    return int(sure.sum()), int((~sure).sum()), int((~same & ~sure).sum())
+
+
+def dp_engine_run(dtype, rank, world):
+    """Phase 25.1's steps on one rank of ``world`` (one process: world 1):
+    one dense step with 2D masking, one hybrid step at bucket 0.8 and one
+    static step of ``TrainModule.train_step`` on the rank's rows of three
+    seeded global batches of ``DP_BATCH * DP_RANKS``, with drop-path 0.1.
+    Returns the per-step global losses and ms, the launches of the steps,
+    the all-reduce ms, the kept ids and score gaps of every drop block, and
+    the flat parameters before and after."""
+    from tpat_tpu_torch.cli import profile_train
+    from tpat_tpu_torch.engine.train import TrainModule
+    from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.ops import pruning
+    from tpat_tpu_torch.ops import qkv_attention as qa
+    from tpat_tpu_torch.parallel import distributed as dist_lib
+    from tpat_tpu_torch.parallel.mesh import rank_rows
+
+    cfg, tc = _dp_configs(dtype, world)
+    batch = tc.batch_size
+    sd = sharpened_state_dict(AudioViT(cfg), DP_SEED)
+    data = profile_train.synthetic_batches(cfg, DP_BATCH * DP_RANKS,
+                                           len(DP_STEPS), DP_SEED, DP_DEVICE)
+    mod = TrainModule(cfg, tc, "ce", iters_per_epoch=2, device=DP_DEVICE)
+    state = mod.load(sd, seed=SEED)
+    p0 = torch.cat([p.detach().reshape(-1).float() for p in state.params]).cpu()
+    variants = profile_train.step_variants(cfg)
+    acc = mod._zero_acc()
+    picked, reduce_ms = [], []
+    topk, reduce = pruning.topk_select, dist_lib.all_reduce_mean_
+
+    def recording_topk(scores, k):
+        idx = topk(scores, k)
+        picked.append((scores.detach(), idx))
+        return idx
+
+    def timed_reduce(tensors):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(tensors)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    losses, step_ms, kept = [], [], []
+    pruning.topk_select, dist_lib.all_reduce_mean_ = recording_topk, timed_reduce
+    try:
+        qa.launches = qa.prefix_launches = 0  # the path starts here
+        qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+        for name, (x, y) in zip(DP_STEPS, data):
+            kw = variants[name]
+            picked.clear()
+            before = acc["loss_sum"].item()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.train_step(state, acc, x[rank_rows(batch, rank)],
+                           y[rank_rows(batch, rank)], **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(acc["loss_sum"].item() - before)
+            drops = [kw["num_left"][i] if "num_left" in kw else None
+                     for i in cfg.drop_loc] if kw["phase"] != "dense" else []
+            kept.append(_kept_ids(picked, drops, cfg.num_patches))
+        launches = _counts(qa)  # the path ends here
+    finally:
+        pruning.topk_select, dist_lib.all_reduce_mean_ = topk, reduce
+    global_losses = torch.tensor(losses, device=DP_DEVICE)
+    reduce([global_losses])  # each step's loss over the global batch
+    p1 = torch.cat([p.detach().reshape(-1).float() for p in state.params]).cpu()
+    del state, mod, data
+    torch.cuda.empty_cache()
+    return {"losses": global_losses.tolist(), "step_ms": step_ms,
+            "reduce_ms": reduce_ms, "launches": launches, "kept": kept,
+            "p0": p0, "p1": p1, "digest": _digest([p1]),
+            "num_patches": cfg.num_patches}
+
+
+def _audit_writes(prefix, log):
+    """Record every write-mode open, directory made or removed, rename,
+    removal and file copy under ``prefix`` (an audit hook: Python's, numpy's
+    and the CLIs' writes all raise these events)."""
+    def hook(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writes = (any(c in mode for c in "wax+") if isinstance(mode, str)
+                      else bool(flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)))
+            path = path if writes else None
+        elif event in DP_WRITE_EVENTS:
+            path = args[1] if event in ("os.rename", "shutil.copyfile") else args[0]
+        else:
+            return
+        if isinstance(path, (str, os.PathLike)) and os.fspath(path).startswith(
+                prefix):
+            log.append(f"{event} {os.fspath(path)}")
+
+    sys.addaudithook(hook)
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+WA_COUNTERS = ("launches", "banded_launches", "bwd_launches",
+               "banded_bwd_launches")
+
+
+def _dp_counts(qa, wa) -> tuple:
+    """(B1, B2, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd) launches."""
+    return _counts(qa) + tuple(getattr(wa, c) for c in WA_COUNTERS)
+
+
+def _dp_zero(qa, wa):
+    qa.launches = qa.prefix_launches = 0
+    qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+    for c in WA_COUNTERS:
+        setattr(wa, c, 0)
+
+
+def dp_cli_rank(task, out, argv):
+    """One rank of phase 25.3/25.4: the CLI ``task`` (finetune, run_ast,
+    pretrain) on ``argv``, with its launches counted from just before
+    ``main`` to just after, its writes under its output directory audited
+    and its final parameters' sha256; for finetune also phase 20's step and
+    eval records, the eval ids each dist-eval pass read and the rows each
+    gather returned."""
+    from tpat_tpu_torch.cli import finetune, pretrain, run_ast
+    from tpat_tpu_torch.engine import evaluate as eval_lib
+    from tpat_tpu_torch.engine import pretrain as pretrain_lib
+    from tpat_tpu_torch.engine import train as train_lib
+    from tpat_tpu_torch.ops import qkv_attention as qa
+    from tpat_tpu_torch.ops import window_attention as wa
+
+    cli = {"finetune": (finetune, finetune.get_args_parser, "--output_dir"),
+           "run_ast": (run_ast, run_ast.get_parser, "--exp-dir"),
+           "pretrain": (pretrain, pretrain.get_args_parser, "--output_dir")}
+    module, parser, flag = cli[task]
+    args = parser().parse_args(argv)
+    writes, final, eval_ids, gathered = [], {}, [], []
+    _audit_writes(os.path.abspath(getattr(args, flag.lstrip("-").replace(
+        "-", "_"))), writes)
+    make_step = pretrain_lib.make_mae_train_step
+    dist_batches, allgather = finetune.dist_eval_batches, eval_lib.allgather_rows
+
+    def keep_model(model, *a, **kw):
+        final["params"] = list(model.parameters())
+        return make_step(model, *a, **kw)
+
+    def recorded_batches(*a, **kw):
+        eval_ids.append([])
+        for x, y, ids in dist_batches(*a, **kw):
+            eval_ids[-1] += list(ids)
+            yield x, y, ids
+
+    def recorded_gather(arr):
+        g = allgather(arr)
+        gathered.append(int(g.shape[0]))
+        return g
+
+    epochs, evals, calls = [], [], []
+    with _finetune_recording(qa, calls, epochs, evals):
+        timed_epoch = train_lib.TrainModule.train_epoch
+
+        def keep_state(self, state, *a, **kw):
+            state, stats = timed_epoch(self, state, *a, **kw)
+            final["params"] = state.params
+            return state, stats
+
+        train_lib.TrainModule.train_epoch = keep_state
+        pretrain_lib.make_mae_train_step = keep_model
+        finetune.dist_eval_batches = recorded_batches
+        eval_lib.allgather_rows = recorded_gather
+        try:
+            _dp_zero(qa, wa)  # the path starts here
+            t0 = time.perf_counter()
+            ret = module.main(args)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = _dp_counts(qa, wa)  # the path ends here
+        finally:
+            train_lib.TrainModule.train_epoch = timed_epoch
+            pretrain_lib.make_mae_train_step = make_step
+            finetune.dist_eval_batches = dist_batches
+            eval_lib.allgather_rows = allgather
+    return {"ret": ret, "launches": launches, "writes": writes,
+            "digest": _digest(final["params"]), "wall_s": wall_s,
+            "epochs": [{"epoch": rec["epoch"], "wait_ms": rec["wait_ms"],
+                        "wall_ms": rec["wall_ms"],
+                        "steps": [s[:2] for s in rec["steps"]]}
+                       for rec in epochs],
+            "evals": evals, "eval_ids": eval_ids, "gathered": gathered}
+
+
+def dp_rank_main(task, out):
+    """A rank of phase 25 (``python3 chip_smoke.py --dp-rank <task> <dir>``
+    under ``torch.distributed.run``): joins the group on its card (gloo: the
+    ranks share it), runs each of the '+'-joined tasks (``engine``, or a CLI
+    on its argv in ``<dir>/argv.json``) in turn, saves their results to
+    ``<dir>/rank<r>.pt``."""
+    from tpat_tpu_torch.parallel import distributed as dist_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as check_device
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, device = dist_lib.init_distributed_mode(DP_DEVICE)
+    with open(os.path.join(out, "argv.json")) as f:
+        argvs = json.load(f)
+    res = {}
+    for t in task.split("+"):
+        if t != "engine":
+            res[t] = dp_cli_rank(t, out, argvs[t])
+            continue
+        res[t] = {d: dp_engine_run(d, rank, world) for d in DP_TOL}
+        if rank:  # rank 0 returns the parameters for the comparison
+            for r in res[t].values():
+                r["p1"] = r["p0"] = None
+    res.update(rank=rank, world=world, device=str(device),
+               backend=torch.distributed.get_backend())
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist_lib.leave()
+
+
+def dp_spawn(task, out, argvs=None):
+    """``DP_RANKS`` ranks of ``task`` under ``torch.distributed.run``, the
+    CLIs' argv (``{cli: argv}``) handed over in ``<out>/argv.json``; every
+    process of the spawn is killed if it outlives ``DP_TIMEOUT``.  Returns
+    each rank's result and the spawn's seconds."""
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "argv.json"), "w") as f:
+        json.dump(argvs or {}, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DP_RANKS), os.path.abspath(__file__),
+           "--dp-rank", task, out]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        text, _ = proc.communicate()
+        raise AssertionError(f"phase 25 {task}: the ranks outlived "
+                             f"{DP_TIMEOUT} s and were killed:\n{text[-6000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+    if proc.returncode:
+        raise AssertionError(f"phase 25 {task}: rc {proc.returncode}:\n"
+                             f"{text[-6000:]}")
+    seconds = time.perf_counter() - t0
+    res = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+           for r in range(DP_RANKS)]
+    for r, x in enumerate(res):
+        if (x["rank"], x["world"], x["backend"]) != (r, DP_RANKS, "gloo"):
+            raise AssertionError(f"phase 25 {task}: rank {r} ran as {x}")
+    return res, seconds
+
+
+def dp_engine_check(one, ranks, smi) -> tuple:
+    """Phase 25.1: ``dp_engine_run`` in one process (``one``) and on two
+    ranks (``ranks``, each on its 64 rows): the ranks' launches equal to the
+    one process's, their losses and parameters equal to each other, and to
+    the one process's within ``DP_TOL``, the kept tokens equal in every row
+    without a tie.  Returns the ranks' summed launches."""
+    from tpat_tpu_torch.parallel.mesh import rank_rows
+
+    ranks = [r["engine"] for r in ranks]
+    total = [0] * 4
+    for dtype, tol in DP_TOL.items():
+        o, rs = one[dtype], [r[dtype] for r in ranks]
+        for r, x in enumerate(rs):
+            if x["launches"] != o["launches"]:
+                raise AssertionError(f"25.1 {dtype}: rank {r} launched "
+                                     f"{x['launches']}, one process "
+                                     f"{o['launches']}")
+            total = [a + b for a, b in zip(total, x["launches"])]
+        if rs[0]["losses"] != rs[1]["losses"] or rs[0]["digest"] != rs[1]["digest"]:
+            raise AssertionError(f"25.1 {dtype}: the ranks differ")
+        rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], o["losses"])]
+        if not max(rel) <= tol["loss_rtol"]:
+            raise AssertionError(f"25.1 {dtype}: losses {rs[0]['losses']} vs "
+                                 f"one process {o['losses']}")
+        if not torch.equal(rs[0]["p0"], o["p0"]):
+            raise AssertionError(f"25.1 {dtype}: the ranks started elsewhere")
+        moved = (o["p1"] - o["p0"]).norm().item()
+        param_rel = (rs[0]["p1"] - o["p1"]).norm().item() / moved
+        if not (moved > 0 and param_rel <= tol["param_rel"]):
+            raise AssertionError(f"25.1 {dtype}: parameters differ by "
+                                 f"{param_rel:.3g} of the {moved:.3g} moved")
+        clear = tied = tied_other = 0
+        for step, blocks in enumerate(o["kept"]):
+            for block, one_block in enumerate(blocks):
+                for r, x in enumerate(rs):
+                    rows = rank_rows(DP_BATCH, r)
+                    one_rows = tuple(t[rows] if torch.is_tensor(t) else t
+                                     for t in one_block)
+                    try:
+                        c, t, d = _kept_rows_equal(
+                            one_rows, x["kept"][step][block],
+                            o["num_patches"])
+                    except AssertionError as e:
+                        raise AssertionError(
+                            f"25.1 {dtype} {DP_STEPS[step]} drop block "
+                            f"{block}, rank {r}: {e}") from None
+                    clear, tied, tied_other = (clear + c, tied + t,
+                                               tied_other + d)
+        log(f"25.1 {dtype} depth {DP_DEPTH[dtype][0]}, {DP_RANKS} ranks x "
+            f"b{DP_BATCH} vs one process b{DP_BATCH * DP_RANKS} "
+            f"({', '.join(DP_STEPS)}): losses {rs[0]['losses']} vs "
+            f"{o['losses']} (worst rel {max(rel):.3g}, limit "
+            f"{tol['loss_rtol']}); parameters differ by {param_rel:.3g} of "
+            f"the L2 they moved (limit {tol['param_rel']}); kept tokens "
+            f"equal in {clear} rows without a tie, "
+            f"{tied_other} of {tied} tied rows keep another token; launches "
+            f"(B1, B2, B3 rows, B3 cols) per rank {rs[0]['launches']} = one "
+            f"process's {o['launches']}; step ms rank 0 "
+            f"{[round(v, 1) for v in rs[0]['step_ms']]}, rank 1 "
+            f"{[round(v, 1) for v in rs[1]['step_ms']]}, one process "
+            f"{[round(v, 1) for v in o['step_ms']]}; gradient all-reduce ms "
+            f"rank 0 {[round(v, 1) for v in rs[0]['reduce_ms']]}, rank 1 "
+            f"{[round(v, 1) for v in rs[1]['reduce_ms']]} ({smi})")
+    return tuple(total)
+
+
+def dp_nccl_check(smi):
+    """Phase 25.2: two static b64 bf16 steps (the second at a non-zero lr)
+    without a process group, then inside a one-rank NCCL group on the card,
+    whose broadcast of the weights and all-reduce of the gradients run on
+    the NCCL backend: the parameters after equal bit for bit (cuDNN's
+    deterministic algorithms on for both)."""
+    from tpat_tpu_torch.cli import profile_train
+    from tpat_tpu_torch.engine.train import TrainModule
+    from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.parallel import distributed as dist_lib
+
+    cfg, tc = _dp_configs("bfloat16", DP_RANKS)
+    sd = sharpened_state_dict(AudioViT(cfg), DP_SEED)
+    batches = profile_train.synthetic_batches(cfg, DP_BATCH, 2, DP_SEED,
+                                              DP_DEVICE)
+    seen = []
+    all_reduce = torch.distributed.all_reduce
+
+    def recorded(t, *a, **kw):
+        seen.append((t.device.type, torch.distributed.get_backend()))
+        return all_reduce(t, *a, **kw)
+
+    def steps():
+        mod = TrainModule(cfg, tc, "ce", iters_per_epoch=2, device=DP_DEVICE)
+        state = mod.load(sd, seed=SEED)
+        acc = mod._zero_acc()
+        for x, y in batches:
+            mod.train_step(state, acc, x, y, "static")
+        return _digest(state.params), acc["loss_sum"].item()
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = steps()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        rank, world, device = dist_lib.init_distributed_mode(
+            DP_DEVICE, rank=0, world=1, address=f"127.0.0.1:{port}",
+            local_rank=0, local_world=1)
+        torch.distributed.all_reduce = recorded
+        try:
+            grouped = steps()
+        finally:
+            torch.distributed.all_reduce = all_reduce
+            backend = torch.distributed.get_backend()
+            dist_lib.leave()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    grad_reduces = [b for b in seen if b == ("cuda", "nccl")]
+    if backend != "nccl" or len(grad_reduces) < 2 or (rank, world) != (0, 1):
+        raise AssertionError(f"25.2: backend {backend}, all-reduces {seen}")
+    if grouped != alone:
+        raise AssertionError(f"25.2: inside the NCCL group {grouped}, "
+                             f"alone {alone}")
+    log(f"25.2: a one-rank NCCL group on {device}: {len(grad_reduces)} "
+        f"gradient all-reduces on CUDA tensors over NCCL; two static b"
+        f"{DP_BATCH} bf16 steps give the parameters (sha256 "
+        f"{grouped[0][:16]}) and losses of the run without a group, bit for "
+        f"bit ({smi})")
+
+
+def dp_finetune_check(spawned, argv, walks, ft_launches, ft_summary,
+                      smi) -> tuple:
+    """Phase 25.3: phase 20's finetune run on two ranks of b64 with
+    ``--dist_eval``: each rank's launches are phase 20's and each step's
+    those of phase 8's walk of its kind; each eval reads every clip once
+    across the ranks and gathers the 200 rows; the ranks end with the same
+    parameters; only rank 0 wrote; the log's phases; the best epoch's acc1
+    equals a one-process ``--eval`` of best_model.  Returns the ranks'
+    summed launches."""
+    from tpat_tpu_torch.cli import finetune
+
+    out = argv[argv.index("--output_dir") + 1]
+    ranks = [dict(r["finetune"], rank=r["rank"]) for r in spawned]
+    r0, r1 = ranks
+    if r0["digest"] != r1["digest"] or r0["ret"] != r1["ret"]:
+        raise AssertionError("25.3: the ranks end with other parameters")
+    if r1["writes"] or not r0["writes"]:
+        raise AssertionError(f"25.3: rank 1 wrote {r1['writes'][:5]}; rank 0 "
+                             f"{len(r0['writes'])} writes")
+    with open(os.path.join(out, "log.txt")) as f:
+        logs = [json.loads(line) for line in f]
+    if [e["train_phase"] for e in logs] != FINETUNE_PHASES:
+        raise AssertionError(f"25.3: phases {[e['train_phase'] for e in logs]}")
+    n_eval = FINETUNE_CLIPS[1]
+    for r in ranks:
+        if tuple(r["launches"][:4]) != tuple(ft_launches) or any(r["launches"][4:]):
+            raise AssertionError(f"25.3: rank {r['rank']} launched "
+                                 f"{r['launches']}, phase 20 {ft_launches}")
+        for rec, label in zip(r["epochs"], FINETUNE_WALKS):
+            for _ms, got in rec["steps"]:
+                if tuple(got) != _walk_counts(walks[label]):
+                    raise AssertionError(f"25.3: epoch {rec['epoch']} step "
+                                         f"launched {got}")
+        if r["gathered"] != [n_eval] * (2 * len(FINETUNE_PHASES)):
+            raise AssertionError(f"25.3: gathered rows {r['gathered']}")
+    for i, (a, b) in enumerate(zip(r0["eval_ids"], r1["eval_ids"])):
+        if len(a) + len(b) != n_eval or len(set(a) | set(b)) != n_eval:
+            raise AssertionError(f"25.3: eval {i} read {len(a)} + {len(b)} "
+                                 f"clips, {len(set(a) | set(b))} distinct")
+    if len(r0["eval_ids"]) != len(FINETUNE_PHASES):
+        raise AssertionError(f"25.3: {len(r0['eval_ids'])} dist evals")
+    best = r0["ret"]
+    stats = finetune.main(finetune.get_args_parser().parse_args(
+        argv + ["--eval", "--finetuned_model_path",
+                os.path.join(out, "best_model"),
+                "--result_path", os.path.join(out, "eval_result.txt")]))
+    logged = logs[best["best_epoch"]]["test_acc1"]
+    if stats["acc1"] != logged:
+        raise AssertionError(f"25.3: one-process --eval of best_model acc1 "
+                             f"{stats['acc1']}, the ranks' gathered {logged}")
+    for r in ranks:
+        for rec, e in zip(r["epochs"], logs):
+            wait = sum(rec["wait_ms"])
+            log(f"25.3 rank {r['rank']} epoch {rec['epoch']} "
+                f"({e['train_phase']}): ms per step "
+                f"{[round(s[0], 1) for s in rec['steps']]}; loader wait "
+                f"{wait / rec['wall_ms']:.3f} of the epoch's "
+                f"{rec['wall_ms']:.0f} ms (phase 20, one process at b"
+                f"{FINETUNE_BATCH}: {ft_summary['epoch_ms'][rec['epoch']]:.0f}"
+                f" ms) ({smi})")
+    log(f"25.3: {DP_RANKS} ranks x b{DP_BATCH} with --dist_eval: launches per "
+        f"rank {r0['launches'][:4]} = phase 20's; each of "
+        f"{len(r0['eval_ids'])} evals read {n_eval} clips once across the "
+        f"ranks and gathered {n_eval} rows; best acc1 {best['best_score']:.4f}"
+        f" at epoch {best['best_epoch']} = one-process --eval "
+        f"{stats['acc1']:.4f}; parameters sha256 {r0['digest'][:16]} on both;"
+        f" rank 0 made {len(r0['writes'])} writes, rank 1 none; run "
+        f"{r0['wall_s']:.1f} s")
+    shutil.rmtree(out, ignore_errors=True)
+    return tuple(a + b for a, b in zip(r0["launches"], r1["launches"]))
+
+
+DP_CLI_FILES = {
+    "run_ast": ("models/best_audio_model", "result.csv", "best_result.csv"),
+    "pretrain": ("mae_pretrained.pth", "checkpoint-001", "log.txt"),
+}
+
+
+def dp_other_clis(spawned, argvs, smi) -> tuple:
+    """Phase 25.4: ``run_ast`` (phase 21's flags and corpus) and ``pretrain``
+    (phase 23's flags at decoder 1 and corpus) on two ranks for two epochs
+    each: the same parameters on both ranks, rank-0-only files, kernels
+    launched on both.  Returns the ranks' summed launches."""
+    total = [0] * 8
+    for task, files in DP_CLI_FILES.items():
+        argv = argvs[task]
+        ranks = [dict(r[task], rank=r["rank"]) for r in spawned]
+        r0, r1 = ranks
+        out = argv[argv.index("--exp-dir" if task == "run_ast"
+                              else "--output_dir") + 1]
+        missing = [f for f in files if not os.path.isfile(os.path.join(out, f))]
+        if r0["digest"] != r1["digest"] or r0["ret"] != r1["ret"]:
+            raise AssertionError(f"25.4 {task}: the ranks differ")
+        if r1["writes"] or missing:
+            raise AssertionError(f"25.4 {task}: rank 1 wrote "
+                                 f"{r1['writes'][:5]}; missing {missing}")
+        for r in ranks:
+            n = r["launches"]
+            used = [n[0], n[2], n[3]] + (
+                [n[4] + n[5], n[6] + n[7]] if task == "pretrain" else [])
+            if min(used) == 0:
+                raise AssertionError(f"25.4 {task}: rank {r['rank']} "
+                                     f"launched {r['launches']}")
+            total = [a + b for a, b in zip(total, r["launches"])]
+        log(f"25.4 {task}: {DP_RANKS} ranks, two epochs: launches per rank "
+            f"(B1, B2, B3 rows, B3 cols, B5, B6, B5 bwd, B6 bwd) "
+            f"{r0['launches']} and {r1['launches']}; parameters sha256 "
+            f"{r0['digest'][:16]} on both; rank 0 made {len(r0['writes'])} "
+            f"writes, rank 1 none; run {r0['wall_s']:.1f} s ({smi})")
+        shutil.rmtree(out, ignore_errors=True)
+    return tuple(total)
+
+
+def data_parallel_path(tmp, paths, walks, ft_launches, ft_summary, smi):
+    """Phase 25.  Returns the launches (B1, B2, B3 rows, B3 cols, B5, B6, B5
+    bwd, B6 bwd) of every rank of its runs."""
+    t0 = time.perf_counter()
+    one = {d: dp_engine_run(d, 0, 1) for d in DP_TOL}
+    pre_root = os.path.join(tmp, "audioset")
+    argvs = {
+        "finetune": finetune_argv(paths, os.path.join(tmp, "dp_ft_out"))
+        + ["--batch_size", str(DP_BATCH), "--dist_eval"],
+        "run_ast": ast_argv(paths, os.path.join(tmp, "ast_audioset.pth"),
+                            os.path.join(tmp, "dp_ast_out"))
+        + ["--n-epochs", "2"],
+        "pretrain": pretrain_argv(
+            {"train": os.path.join(pre_root, "as20k_16k.json"),
+             "labels": os.path.join(pre_root, "class_labels_indices.csv")},
+            os.path.join(tmp, "dp_pre_out")),
+    }
+    # one spawn of the ranks runs 25.1, 25.3 and 25.4 in turn: a spawn's
+    # start-up (the processes, CUDA, the model's first build) costs ~20 s
+    ranks, seconds = dp_spawn("+".join(["engine", *argvs]),
+                              os.path.join(tmp, "dp"), argvs)
+    log(f"phase 25: the spawn of the ranks took {seconds:.1f} s")
+    engine = dp_engine_check(one, ranks, smi)
+    dp_nccl_check(smi)
+    ft = dp_finetune_check(ranks, argvs["finetune"], walks, ft_launches,
+                           ft_summary, smi)
+    other = dp_other_clis(ranks, argvs, smi)
+    total = tuple(a + b + c for a, b, c in zip(engine + (0,) * 4, ft, other))
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s; launches of every rank "
+        f"(B1, B2, B3 rows, B3 cols, B5, B6, B5 bwd, B6 bwd) {total}")
+    return total
+
+
 def main():
     with tempfile.TemporaryDirectory() as tmp:
         run_phases(tmp)
@@ -3760,10 +4402,16 @@ def run_phases(tmp):
     if min(pre_cli[:3]) == 0 or min(pre_cli[4], pre_cli[6]) == 0:
         raise AssertionError(f"pretrain CLI launches {pre_cli}")
     device_cache_path(tmp, corpus, smi)
+    dp = data_parallel_path(tmp, corpus, walks, finetune_launches, ft_loader,
+                            smi)
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
-    window_launches = {"B5 fwd": esc50[3], "B6 fwd": audioset[4] + pre_cli[4],
-                       "B5 bwd": esc50[5], "B6 bwd": audioset[6] + pre_cli[6]}
+    window_launches = {"B5 fwd": esc50[3] + dp[4],
+                       "B6 fwd": audioset[4] + pre_cli[4] + dp[5],
+                       "B5 bwd": esc50[5] + dp[6],
+                       "B6 bwd": audioset[6] + pre_cli[6] + dp[7]}
+    window_dp = {"B5 fwd": dp[4], "B6 fwd": dp[5], "B5 bwd": dp[6],
+                 "B6 bwd": dp[7]}
     if min(window_launches.values()) == 0:
         raise AssertionError(f"window kernel launches {window_launches}")
     step = sums[EPOCH_LABELS[3]]
@@ -3802,7 +4450,7 @@ def run_phases(tmp):
     kernels = [
         _entry("qkv_attention_fwd", "qkv_attention.cu", "tpat_tpu/ops/pallas_attention.py:121",
                serve_launches + train_launches[0] + audioset[0] + esc50[0]
-               + wave_launches[0] + pre_cli[0],
+               + wave_launches[0] + pre_cli[0] + dp[0],
                max(grid_err, timed_err, path_err["B1"], pre_err["B1"],
                    ast_err["B1"], d32_err["B1"]),
                ms, plain_ms, bound_of(serve_bound), None,
@@ -3812,12 +4460,12 @@ def run_phases(tmp):
                     "9 without scores are timed against the library call in "
                     "phase 3; " + ast_note + "; " + dec0_note,
                finetune_launches=finetune_launches[0],
-               waveform_launches=wave_launches[0],
+               waveform_launches=wave_launches[0], dp_launches=dp[0],
                ast_launches=ast_launches[0], ast_ms=ast_step["B1"][0],
                **dec0("B1", 0, 0), **fwd_build),
         _entry("qkv_attention_prefix_fwd", "qkv_attention.cu",
                "tpat_tpu/ops/pallas_attention.py:121",
-               train_launches[1] + wave_launches[1],
+               train_launches[1] + wave_launches[1] + dp[1],
                max(prefix_err, path_err["B2"], ast_err["B2"], d32_err["B2"]),
                step["B2"][0],
                step["B2"][1], bound_of(step["B2bound"]), step["B2lib"],
@@ -3829,12 +4477,12 @@ def run_phases(tmp):
                     "patch_mean scores; noscore sums the calls without "
                     "scores, which SDPA with the key mask computes; " + ast_note,
                finetune_launches=finetune_launches[1],
-               waveform_launches=wave_launches[1],
+               waveform_launches=wave_launches[1], dp_launches=dp[1],
                ast_launches=ast_launches[1], ast_ms=ast_step["B2"][0],
                **fwd_build),
         _entry("qkv_attention_bwd_rows", "qkv_attention_bwd.cu", bwd,
                train_launches[2] + audioset[1] + esc50[1] + wave_launches[2]
-               + pre_cli[1],
+               + pre_cli[1] + dp[2],
                b3_err,
                step["B3"][0], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"],
@@ -3842,13 +4490,13 @@ def run_phases(tmp):
                dec0_pair_ms=d32["B3"][2], **dec0("B3", 0, 1),
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[2],
-               waveform_launches=wave_launches[2],
+               waveform_launches=wave_launches[2], dp_launches=dp[2],
                ast_launches=ast_launches[2], ast_ms=ast_step["B3"][0],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_rows_bf16_kernel")),
         _entry("qkv_attention_bwd_cols", "qkv_attention_bwd.cu", bwd,
                train_launches[3] + audioset[2] + esc50[2] + wave_launches[3]
-               + pre_cli[2],
+               + pre_cli[2] + dp[3],
                b3_err,
                step["B3"][1], b3["plain"], b3["bound"], b3["lib"], per_step,
                pair_ms=b3["pair_ms"],
@@ -3856,7 +4504,7 @@ def run_phases(tmp):
                dec0_pair_ms=d32["B3"][2], **dec0("B3", 1, 2),
                library_backend=b3["library_backend"],
                finetune_launches=finetune_launches[3],
-               waveform_launches=wave_launches[3],
+               waveform_launches=wave_launches[3], dp_launches=dp[3],
                ast_launches=ast_launches[3], ast_ms=ast_step["B3"][1],
                **bf16_build("qkv_attention_bwd",
                             "qkv_attention_bwd_cols_bf16_kernel")),
@@ -3873,7 +4521,8 @@ def run_phases(tmp):
         e = pre_sums[grid][key]
         fwd = key.endswith("fwd")
         build = WINDOW_FWD_BUILD if fwd else WINDOW_BWD_BUILD
-        extra = {"library_backend": sorted(e["backends"])}
+        extra = {"library_backend": sorted(e["backends"]),
+                 "dp_launches": window_dp[key]}
         if fwd:
             extra.update(device_ms=e["device_ms"], note=WINDOW_FWD_NOTE)
         else:
@@ -3944,4 +4593,7 @@ def run_phases(tmp):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 25
+        dp_rank_main(sys.argv[2], sys.argv[3])
+    else:
+        main()

@@ -183,10 +183,13 @@ def test_evaluate_feature_callback_matches_jax():
 
 
 def test_evaluate_refuses_unported():
-    """The multi-process gather (A11) is refused.  ``preprocess`` (refused
-    until the device frontend was ported) now runs at the head of each
-    eval forward with specaug=False and train=False, so the metrics are
-    those of the preprocessed batches."""
+    """Nothing is refused any more.  ``preprocess`` (refused until the
+    device frontend was ported) runs at the head of each eval forward with
+    specaug=False and train=False, so the metrics are those of the
+    preprocessed batches.  The multi-process gather (refused until data
+    parallelism was ported) is the identity in one process, so
+    ``allgather=True`` gives the same metrics (its runs across ranks are
+    held in test_torch_distributed.py)."""
     kw = _kw()
     _, _, model = _pair(kw)
     batches = _batches(kw, (2, 1))
@@ -201,8 +204,10 @@ def test_evaluate_refuses_unported():
         model, [(2.0 * x, y) for x, y in batches], 2)
     assert got == want
     assert seen == [(None, False, False, 2)] * 2  # the ragged batch padded
-    with pytest.raises(NotImplementedError, match="A11"):
-        evaluate.evaluate_classification(model, batches, 2, allgather=True)
+    plain = evaluate.evaluate_classification(model, batches, 2)
+    assert evaluate.evaluate_classification(model, batches, 2,
+                                            allgather=True) == plain
+    assert evaluate.allgather_rows(np.ones((3, 2))).shape == (3, 2)
 
 
 def test_smoothed_value_and_metric_logger_match_jax():

@@ -210,8 +210,9 @@ def test_pretrained_head_kernel_reinitialized(corpus, tmp_path):
     (["--model_axis", "2"], "A11"),
 ])
 def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
-    """A11 is refused, naming its ROADMAP item.  The flags of A7, A8 and
-    A10, refused until they were ported, now run: feature extraction
+    """--model_axis > 1 (tensor parallelism) is refused, naming ROADMAP
+    A11b, the half of A11 still to port.  The flags of A7, A8 and A10,
+    refused until they were ported, now run: feature extraction
     writes every block's features for the analysis (held against the JAX
     CLI in test_torch_features.py), the device frontend trains beside
     tpat_tpu.cli.finetune with the same flags (without SpecAug or noise):
@@ -246,7 +247,7 @@ def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
                                              "roll-mag"):
             _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *flags))
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="A11b"):
         _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *flags))
 
 
@@ -286,10 +287,36 @@ def test_device_frontend_specaug_only_in_the_dense_epoch(corpus, tmp_path,
     assert [c for c in calls if not c[1]] == [(False, False)]  # one eval batch
 
 
-def test_more_than_one_process_refused(corpus, tmp_path, monkeypatch):
+def _as_rank_0_of_2(monkeypatch):
+    """The launcher's environment of rank 0 of two, the process group
+    left out (the runs across ranks are in test_torch_distributed.py)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A11"):
-        _run(_argv(corpus, tmp_path / "o", "--epochs", "1"))
+    monkeypatch.setattr(ft.dist_lib, "init_distributed_mode",
+                        lambda device: (0, 2, torch.device(device)))
+
+
+def test_more_than_one_process_refused(corpus, tmp_path, monkeypatch, capsys):
+    """More than one process runs now (data parallelism, held in
+    test_torch_distributed.py); what it still refuses, as the JAX CLI
+    does: feature extraction (main_finetune.py:232), and the device
+    dataset cache, which 'true' raises for and 'auto' declines, saying
+    why."""
+    _as_rank_0_of_2(monkeypatch)
+    pth = tmp_path / "model.pth"
+    torch.save({"model": AudioViT(audiomae_vit_tiny(
+        target_length=128, num_classes=4, drop_loc=(1, 3))).state_dict()}, pth)
+    with pytest.raises(ValueError, match="single process"):
+        _run(_argv(corpus, tmp_path / "o", "--epochs", "1", "--eval",
+                   "--finetuned_model_path",
+                   str(pth), "--flag_extract_features", "true",
+                   "--extract_features_path", str(tmp_path / "feats")))
+    assert not (tmp_path / "feats").exists()
+    assert "eval set: streamed from the host (a multi-process run" in (
+        capsys.readouterr().out)
+    with pytest.raises(ValueError, match="train set cannot be cached: "
+                                         "multi-process run"):
+        _run(_argv(corpus, tmp_path / "o", "--epochs", "1",
+                   "--device_dataset", "true"))
 
 
 def test_finetune_needs_cuda_unless_cpu_is_asked(corpus, tmp_path, monkeypatch):

@@ -31,7 +31,9 @@ MODULES = (
     "tpat_tpu_torch.analysis, tpat_tpu_torch.analysis.stats, "
     "tpat_tpu_torch.analysis.extract_stats, tpat_tpu_torch.analysis.reducers, "
     "tpat_tpu_torch.utils.features, tpat_tpu_torch.ops.frontend, "
-    "tpat_tpu_torch.cli.pretrain, tpat_tpu_torch.data.device_cache"
+    "tpat_tpu_torch.cli.pretrain, tpat_tpu_torch.data.device_cache, "
+    "tpat_tpu_torch.parallel, tpat_tpu_torch.parallel.distributed, "
+    "tpat_tpu_torch.parallel.mesh"
 )
 FORBIDDEN = ("jax", "flax", "tpat_tpu")  # top-level package names
 LIBRARY_ATTENTION = "scaled_dot_product_attention"
@@ -137,3 +139,13 @@ def test_chip_smoke_names_library_attention_in_one_yardstick_only():
     assert all(yardstick.lineno <= i <= yardstick.end_lineno for i in lines)
     body = ast.unparse(yardstick)
     assert "Event" in body and "elapsed_time" in body, yardstick.name
+
+
+def test_parallel_package_is_covered():
+    """The data-parallel package is among the modules imported above and
+    the sources scanned above."""
+    for name in ("parallel", "parallel.distributed", "parallel.mesh"):
+        assert f"tpat_tpu_torch.{name}" in MODULES.split(", ")
+    scanned = {os.path.relpath(p, PORT) for p in _sources(".py")}
+    for f in ("__init__.py", "distributed.py", "mesh.py"):
+        assert os.path.join("parallel", f) in scanned

@@ -240,8 +240,10 @@ def test_cli_answers_help_and_parser_matches_jax(capsys):
 
 def test_refusals(corpus, tmp_path, monkeypatch):
     """No CUDA: the default device raises; an orbax directory to resume
-    from is refused, pointing to tpat-convert; more than one process is
-    refused, naming ROADMAP A11; a non-finite epoch loss stops the run."""
+    from is refused, pointing to tpat-convert; more than one process (run
+    across ranks in test_torch_distributed.py) without rank 0's address is
+    refused before any data is read; a non-finite epoch loss stops the
+    run."""
     args = pt.get_args_parser().parse_args(
         _base(corpus, tmp_path / "o", "--epochs", "1"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -251,9 +253,13 @@ def test_refusals(corpus, tmp_path, monkeypatch):
     orbax.mkdir()
     with pytest.raises(ValueError, match="tpat-convert"):
         _run(_base(corpus, tmp_path / "o", "--resume", str(orbax)))
+    for var in ("MASTER_ADDR", "COORDINATOR_ADDRESS", "NUM_PROCESSES"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A11"):
-        _run(_base(corpus, tmp_path / "o"))
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="rank 0's address"):
+        _run(_base(corpus, tmp_path / "o2"))
+    assert not (tmp_path / "o2").exists()
     with pytest.raises(FloatingPointError, match="epoch 3"):
         pretrain_lib.check_epoch_loss(float("nan"), 3)
     assert pretrain_lib.check_epoch_loss(0.5, 3) == 0.5

@@ -329,10 +329,27 @@ def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
         _run(_argv(corpus, tmp_path / "o", *flags))
 
 
-def test_more_than_one_process_refused(corpus, tmp_path, monkeypatch):
+def test_more_than_one_process_refused(corpus, tmp_path, monkeypatch, capsys):
+    """More than one process runs now (data parallelism, held in
+    test_torch_distributed.py); the device dataset cache still refuses it,
+    as in JAX: 'true' raises, 'auto' declines and says why.  Rank 0 of two
+    is faked from the launcher's environment, without a process group."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A11"):
-        _run(_argv(corpus, tmp_path / "o"))
+    monkeypatch.setattr(run_ast.dist_lib, "init_distributed_mode",
+                        lambda device: (0, 2, torch.device(device)))
+    with pytest.raises(ValueError, match="eval set cannot be cached: "
+                                         "multi-process run"):
+        _run(_argv(corpus, tmp_path / "o", "--device_dataset", "true"))
+    from tpat_tpu_torch.data.datasets import AudiosetDataset
+    from tpat_tpu_torch.data.device_cache import maybe_device_cached
+
+    data_cfg, _ = run_ast.configs(run_ast.get_parser().parse_args(
+        _argv(corpus, tmp_path)))
+    ds = AudiosetDataset(str(corpus / "eval.json"), data_cfg,
+                         str(corpus / "labels.csv"), train=False)
+    assert maybe_device_cached(ds, 8, device="cpu", label="eval set") is None
+    assert "eval set: streamed from the host (a multi-process run" in (
+        capsys.readouterr().out)
 
 
 def test_run_ast_needs_cuda_unless_cpu_is_asked(corpus, tmp_path, monkeypatch):

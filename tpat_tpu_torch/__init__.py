@@ -11,7 +11,8 @@ CLI (``cli.finetune``: the host data pipeline ``data``, ``ops.fbank``,
 ``engine.evaluate``, ``utils.checkpoint``), the AST CLI
 (``cli.run_ast``), the device frontend (``ops.frontend``), feature
 extraction and its analysis (``utils.features``, ``analysis``), MAE
-pretraining (``models.mae``, ``engine.pretrain``), the kernels of those paths
+pretraining (``models.mae``, ``engine.pretrain``), data parallelism across
+processes (``parallel``), the kernels of those paths
 (``ops.qkv_attention``, ``ops.window_attention``, ``ops.layernorm``) and
 the kernel probes (``probes``).
 

@@ -2,9 +2,10 @@
 tpat_tpu_torch.cli.<name>``)."""
 
 import argparse
-import os
 
 import torch
+
+from tpat_tpu_torch.parallel.distributed import world_size  # noqa: F401
 
 
 def str2bool(v):
@@ -18,11 +19,6 @@ def str2bool(v):
     if s in ("no", "false", "f", "n", "0"):
         return False
     raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
-
-
-def world_size() -> int:
-    """The process count the launcher's environment states."""
-    return max(int(os.environ.get(k, "1")) for k in ("WORLD_SIZE", "NUM_PROCESSES"))
 
 
 def card_device(device) -> torch.device:

@@ -50,10 +50,22 @@ caches exactly the eligible sets (under ft_esc50.sh's flags the eval set:
 raises the reason where one is not eligible, 'false' streams both from the
 host loader.
 
+Data parallelism: ``python -m torch.distributed.run --nproc_per_node N
+-m tpat_tpu_torch.cli.finetune ...`` (or the JAX package's
+``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``) trains one model
+over a global batch of ``batch_size * N`` rows (``parallel/``): each rank
+loads its ``EpochShardSampler(world, rank)`` shard, the lr rule counts the
+world, the gradients are averaged across ranks.  ``--dist_eval`` scores
+each rank's unpadded eval shard and gathers the rows exactly; without it
+every rank scores the whole set.  Only rank 0 writes artifacts; rank 0's
+verdict on an existing run directory is broadcast, so every rank stops
+together.  Feature extraction needs one process, and ``--device_dataset``
+streams (``true`` raises) at more than one.
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, naming its ROADMAP item: ``--model_axis`` > 1 or more
-than one process (A11).
+raises.  Refused, naming its ROADMAP item: ``--model_axis`` > 1 (tensor
+parallelism, A11b).
 """
 
 from __future__ import annotations
@@ -71,17 +83,18 @@ import numpy as np
 import torch
 
 from tpat_tpu_torch import config as cfg_lib
-from tpat_tpu_torch.cli import card_device, str2bool, world_size
+from tpat_tpu_torch.cli import card_device, str2bool
 from tpat_tpu_torch.data.datasets import (
     AudiosetDataset, VoxCeleb1Dataset, make_name_dict,
 )
 from tpat_tpu_torch.data.device_cache import maybe_device_cached
 from tpat_tpu_torch.data.loader import DataLoader
-from tpat_tpu_torch.data.sampler import EpochShardSampler
+from tpat_tpu_torch.data.sampler import EpochShardSampler, EvalShardSampler
 from tpat_tpu_torch.engine import evaluate as eval_lib
 from tpat_tpu_torch.engine.train import TrainModule
 from tpat_tpu_torch.models.vit import AudioViT
 from tpat_tpu_torch.ops.frontend import make_preprocess
+from tpat_tpu_torch.parallel import distributed as dist_lib
 from tpat_tpu_torch.utils import checkpoint as ckpt_lib
 from tpat_tpu_torch.utils import torch_import as ti
 from tpat_tpu_torch.utils.features import FeatureWriter
@@ -137,7 +150,8 @@ def get_args_parser():
     p.add_argument("--mask_f_prob", type=float, default=0.0)
     p.add_argument("--num_workers", default=4, type=int)
     p.add_argument("--model_axis", default=1, type=int,
-                   help="tensor-parallel model axis: not ported (ROADMAP A11)")
+                   help="tensor-parallel model axis: not ported "
+                        "(ROADMAP A11b)")
     p.add_argument("--target_length", type=int, default=None,
                    help="override the preset target length (testing)")
     p.add_argument("--device_frontend", type=str2bool, default=False,
@@ -219,15 +233,11 @@ def args_checker(args):
 def refuse_unported(args):
     """Raise for a flag whose feature the port does not have yet, naming the
     ROADMAP item that brings it."""
-    refused = [
-        (args.model_axis > 1, "--model_axis > 1 (tensor parallelism)", "A11"),
-        (world_size() > 1, "more than one process (data parallelism)", "A11"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to tpat_tpu_torch yet: ROADMAP {item}"
-            )
+    if args.model_axis > 1:
+        raise NotImplementedError(
+            "--model_axis > 1 (tensor parallelism) is not ported to "
+            "tpat_tpu_torch yet: ROADMAP A11b"
+        )
 
 
 def build_everything(args, device):
@@ -276,10 +286,14 @@ def build_everything(args, device):
             args.data_eval, data_cfg, args.label_csv, train=False,
             return_waveform=wf,
         )
+    # each rank loads only its shard (torch DistributedSampler semantics,
+    # main_finetune.py:292-294); the global batch is batch_size * world
+    rank, world = dist_lib.group_rank_world()
     dd_mode = args.device_dataset
     loader_train = None
     if ds_train is not None:
-        sampler = EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed)
+        sampler = EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed,
+                                    world=world, rank=rank)
         loader_train = maybe_device_cached(
             ds_train, args.batch_size, sampler=sampler,
             num_workers=args.num_workers, drop_last=True, device=device,
@@ -288,11 +302,13 @@ def build_everything(args, device):
             ds_train, args.batch_size, sampler=sampler,
             num_workers=args.num_workers, drop_last=True,
         )
-    # (the JAX CLI streams the eval set under --dist_eval across
-    # processes; more than one process is refused here)
+        dist_lib.check_equal(len(loader_train), "train steps per epoch")
+    # --dist_eval reads each rank's shard through dist_eval_batches, so a
+    # device copy of the whole eval set would be made for nothing
+    eval_dd_mode = "false" if (args.dist_eval and world > 1) else dd_mode
     loader_val = maybe_device_cached(
         ds_val, args.batch_size, shuffle=False, num_workers=args.num_workers,
-        drop_last=False, device=device, mode=dd_mode, label="eval set",
+        drop_last=False, device=device, mode=eval_dd_mode, label="eval set",
     ) or DataLoader(
         ds_val, args.batch_size, shuffle=False,
         num_workers=args.num_workers, drop_last=False,
@@ -319,6 +335,7 @@ def build_everything(args, device):
         mask_f_prob=args.mask_f_prob,
         first_eval_ep=args.first_eval_ep,
         dist_eval=args.dist_eval,
+        num_hosts=world,
     )
     module = TrainModule(
         model_cfg, train_cfg, data_cfg.loss_type,
@@ -374,27 +391,64 @@ def initial_state_dict(args, model_cfg) -> Dict[str, torch.Tensor]:
     return model.state_dict()
 
 
+def dist_eval_batches(ds_val, batch_size, num_workers=4, world=None,
+                      rank=None):
+    """This rank's unpadded eval shard (DistributedEvalSampler semantics,
+    ``util/sampler.py:73-99``) as (x, y, ids) batches: rank-strided
+    indices, no wrap padding, so the gathered metrics are exact.  A rank
+    whose shard is empty (fewer rows than ranks) gets one batch of a row
+    with no ids, which scores no row.  ``world`` and ``rank`` default to
+    the process group's."""
+    g_rank, g_world = dist_lib.group_rank_world()
+    world = g_world if world is None else world
+    rank = g_rank if rank is None else rank
+    sampler = EvalShardSampler(len(ds_val), world, rank)
+    if not len(sampler):
+        x, y, _ = ds_val[0]
+        yield np.stack([x]), np.stack([y]), []
+        return
+    yield from DataLoader(ds_val, batch_size, sampler=sampler,
+                          num_workers=num_workers, drop_last=False)
+
+
 def _eval_once(args, model, module, loader_val, device, feature_writer=None,
                index_to_name=None, intensity_band=None) -> Dict[str, float]:
-    """One eval pass; like the reference, which sets use_custom_rank
-    model-wide (main_finetune.py:448-450), the custom rank applies to every
-    single-label eval."""
-    batches = ((x, y) for x, y, _ in loader_val)
+    """One eval pass, the one place of the dist-eval policy: with
+    ``--dist_eval`` over several processes each rank scores its unpadded
+    shard and the rows are gathered (engine_finetune.py:246-248), otherwise
+    every rank scores the whole set.  Like the reference, which sets
+    use_custom_rank model-wide (main_finetune.py:448-450), the custom rank
+    applies to every single-label eval."""
+    dist = args.dist_eval and dist_lib.world_size() > 1
+    if dist:
+        batches = ((x, y, len(ids)) for x, y, ids in dist_eval_batches(
+            loader_val.dataset, args.batch_size,
+            num_workers=loader_val.num_workers))
+    else:
+        batches = ((x, y) for x, y, _ in loader_val)
     if args.dataset == "audioset":
         return eval_lib.evaluate_multilabel(
             model, batches, args.batch_size, device,
             feature_writer=feature_writer, preprocess=module.preprocess,
+            allgather=dist,
         )
     return eval_lib.evaluate_classification(
         model, batches, args.batch_size, device,
         feature_writer=feature_writer, index_to_name=index_to_name,
         custom_rank=args.custom_rank, intensity_band=intensity_band,
-        preprocess=module.preprocess,
+        preprocess=module.preprocess, allgather=dist,
     )
 
 
 def run_eval(args, model, module, loader_val, device) -> Dict[str, float]:
     writer = index_to_name = None
+    if args.flag_extract_features and dist_lib.world_size() > 1:
+        # the reference's args_checker demands world_size 1 for extraction
+        # (main_finetune.py:232); the ranks' batch files would collide
+        raise ValueError(
+            "feature extraction requires a single process "
+            "(main_finetune.py:232)"
+        )
     if args.flag_extract_features:
         # exist_ok=False (main_finetune.py:494): an earlier run's batch files
         # would be globbed into the analysis with the new ones
@@ -411,10 +465,13 @@ def run_eval(args, model, module, loader_val, device) -> Dict[str, float]:
                        feature_writer=writer, index_to_name=index_to_name,
                        intensity_band=band)
     metric = "mAP" if args.dataset == "audioset" else "acc1"
-    print(f"{metric}: {stats[metric]:.4f}")
-    if args.result_path:
-        with open(args.result_path, "w") as f:
-            f.write(f"{stats[metric]:.4f}")
+    # rank 0 writes; under --dist_eval every rank holds the same gathered
+    # stats
+    if dist_lib.is_main_process():
+        print(f"{metric}: {stats[metric]:.4f}")
+        if args.result_path:
+            with open(args.result_path, "w") as f:
+                f.write(f"{stats[metric]:.4f}")
     return stats
 
 
@@ -451,7 +508,10 @@ def main(args, device="cuda") -> Optional[Dict]:
     epoch."""
     args_checker(args)
     refuse_unported(args)
-    device = card_device(device)
+    # joins the process group under torchrun (or the JAX names); a no-op
+    # for one process
+    rank, world, device = dist_lib.init_distributed_mode(card_device(device))
+    is_main = rank == 0
     np.random.seed(args.seed)
 
     model_cfg, data_cfg, module, loader_train, loader_val = build_everything(
@@ -465,22 +525,26 @@ def main(args, device="cuda") -> Optional[Dict]:
         return run_eval(args, model, module, loader_val, device)
 
     out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    write_args_yaml(out / "args.yaml", vars(args))
+    if is_main:  # only rank 0 writes (misc.py:297-312)
+        out.mkdir(parents=True, exist_ok=True)
+        write_args_yaml(out / "args.yaml", vars(args))
 
     # refuse to clobber an existing run (main_finetune.py:313-316); a resume
-    # appends to the same log
+    # appends to the same log.  Rank 0's verdict is broadcast, so every rank
+    # stops together instead of waiting in the first gradient all-reduce.
     tb_dir = out / "tb_log"
-    if tb_dir.exists() and not args.resume:
-        print(f"!! path {tb_dir} exists, stop training")
+    stop = dist_lib.broadcast_object(tb_dir.exists() and not args.resume)
+    if stop:
+        dist_lib.print_rank0(f"!! path {tb_dir} exists, stop training")
         raise SystemExit(1)
     tb = None
-    try:  # TensorBoard scalars where TensorBoard is installed
-        from torch.utils.tensorboard import SummaryWriter
+    if is_main:
+        try:  # TensorBoard scalars where TensorBoard is installed
+            from torch.utils.tensorboard import SummaryWriter
 
-        tb = SummaryWriter(str(tb_dir))
-    except ImportError:
-        pass
+            tb = SummaryWriter(str(tb_dir))
+        except ImportError:
+            pass
 
     state = module.load(sd, seed=args.seed)
     if args.resume:
@@ -504,11 +568,12 @@ def main(args, device="cuda") -> Optional[Dict]:
                 f"[{args.start_epoch}, {args.epochs}): no trace would "
                 "ever be written"
             )
+    # the other ranks track the same score without writing
     keeper = ckpt_lib.BestCheckpointKeeper(
         args.ramdisk_dir or str(out / "scratch"), str(out),
         async_save=args.async_checkpoint,
         snapshot_on_device=args.best_on_device,
-    )
+    ) if is_main else ckpt_lib.BestScore()
     metric = "mAP" if args.dataset == "audioset" else "acc1"
 
     start = time.time()
@@ -520,7 +585,8 @@ def main(args, device="cuda") -> Optional[Dict]:
             loader_train.dataset.freqm = 0
             loader_train.dataset.timem = 0
         batches = ((x, y) for x, y, _ in loader_train)
-        trace = args.profile_dir if epoch == args.profile_epoch else None
+        trace = (args.profile_dir
+                 if epoch == args.profile_epoch and is_main else None)
         with profiler_trace(trace):
             state, train_stats = module.train_epoch(
                 state, batches, epoch, log_every=20
@@ -531,14 +597,18 @@ def main(args, device="cuda") -> Optional[Dict]:
         else:
             test_stats = {metric: -1.0}
         score = test_stats[metric]
-        print(
+        dist_lib.print_rank0(
             f"epoch {epoch}: phase={train_stats['phase']} "
             f"train_loss={train_stats['loss']:.4f} {metric}={score:.4f}"
         )
         if epoch >= args.first_eval_ep:
             # never the -1.0 placeholder of an epoch without eval
-            keeper.update(score, state, epoch)
-        if args.save_every_epochs and (epoch + 1) % args.save_every_epochs == 0:
+            if is_main:
+                keeper.update(score, state, epoch)
+            else:
+                keeper.track(score, epoch)
+        if (is_main and args.save_every_epochs
+                and (epoch + 1) % args.save_every_epochs == 0):
             ckpt_lib.save_checkpoint(
                 str(out / "last_checkpoint"), state, epoch,
                 background=args.async_checkpoint,
@@ -548,8 +618,9 @@ def main(args, device="cuda") -> Optional[Dict]:
             **{f"test_{k}": v for k, v in test_stats.items()},
             "epoch": epoch,
         }
-        with open(out / "log.txt", "a") as f:
-            f.write(json.dumps(log) + "\n")
+        if is_main:
+            with open(out / "log.txt", "a") as f:
+                f.write(json.dumps(log) + "\n")
         if tb is not None:
             for k, v in train_stats.items():
                 if isinstance(v, (int, float)):
@@ -559,15 +630,19 @@ def main(args, device="cuda") -> Optional[Dict]:
                     tb.add_scalar(f"test/{k}", v, epoch)
             tb.flush()
 
-    keeper.finalize()
-    ckpt_lib.wait_for_checkpoints()
-    if tb is not None:
-        tb.close()
-    print(f"training time {time.time() - start:.1f}s, "
-          f"best {metric}={keeper.best_score:.4f} @ epoch {keeper.best_epoch}")
-    if args.result_path:
-        with open(args.result_path, "w") as f:
-            f.write(f"{keeper.best_score:.4f}")
+    if is_main:
+        keeper.finalize()
+        ckpt_lib.wait_for_checkpoints()
+        if tb is not None:
+            tb.close()
+        print(f"training time {time.time() - start:.1f}s, "
+              f"best {metric}={keeper.best_score:.4f} @ epoch "
+              f"{keeper.best_epoch}")
+        if args.result_path:
+            with open(args.result_path, "w") as f:
+                f.write(f"{keeper.best_score:.4f}")
+    # rank 0's files are on disk before any rank returns
+    dist_lib.barrier()
     return {"best_score": keeper.best_score, "best_epoch": keeper.best_epoch}
 
 

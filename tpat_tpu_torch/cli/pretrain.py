@@ -29,9 +29,16 @@ mae_state_dict_for``) gives the weights only, with a fresh optimizer, from
 epoch 0; an orbax directory of the JAX package is refused (convert it with
 ``tpat-convert``).
 
+Data parallelism, as ``cli/finetune.py``: ``python -m
+torch.distributed.run --nproc_per_node N -m tpat_tpu_torch.cli.pretrain
+...`` trains over a global batch of ``batch_size * N`` rows, each rank on
+its sampler shard, with lr = blr * batch_size * N / 256 (the global
+effective batch); the epoch loss is the mean over the ranks, and only rank
+0 writes.
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  More than one process is refused (data parallelism, ROADMAP A11).
+raises.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from pathlib import Path
 import torch
 
 from tpat_tpu_torch import config as cfg_lib
-from tpat_tpu_torch.cli import card_device, str2bool, world_size
+from tpat_tpu_torch.cli import card_device, str2bool
 from tpat_tpu_torch.data.datasets import AudiosetDataset
 from tpat_tpu_torch.data.loader import DataLoader
 from tpat_tpu_torch.data.sampler import EpochShardSampler
@@ -54,6 +61,7 @@ from tpat_tpu_torch.engine import pretrain
 from tpat_tpu_torch.models.mae import (
     MAEConfig, MaskedAutoencoderViT, mae_vit_base_dec512d8b,
 )
+from tpat_tpu_torch.parallel import distributed as dist_lib
 from tpat_tpu_torch.utils import checkpoint as ckpt_lib
 from tpat_tpu_torch.utils import torch_import as ti
 from tpat_tpu_torch.utils.weights import state_dict_of
@@ -148,12 +156,8 @@ def _resume(args, model, optimizer, cfg) -> tuple:
 def main(args, device="cuda"):
     """Pretrain as ``tpat_tpu.cli.pretrain`` does.  Returns the per-epoch
     mean losses of this run."""
-    if world_size() > 1:
-        raise NotImplementedError(
-            "more than one process (data parallelism) is not ported to "
-            "tpat_tpu_torch yet: ROADMAP A11"
-        )
-    device = card_device(device)
+    rank, world, device = dist_lib.init_distributed_mode(card_device(device))
+    is_main = rank == 0
     preset = cfg_lib.DATASET_PRESETS[args.dataset]
     data_cfg = dataclasses.replace(preset, freqm=0, timem=0, mixup=0.0)
     if args.target_length:
@@ -164,15 +168,20 @@ def main(args, device="cuda"):
                          seed=args.seed)
     loader = DataLoader(
         ds, args.batch_size,
-        sampler=EpochShardSampler(len(ds), shuffle=True, seed=args.seed),
+        sampler=EpochShardSampler(len(ds), shuffle=True, seed=args.seed,
+                                  world=world, rank=rank),
         num_workers=args.num_workers, drop_last=True,
     )
+    dist_lib.check_equal(len(loader), "steps per epoch")
 
     cfg = model_config(args, data_cfg)
     model = MaskedAutoencoderViT(
         cfg, generator=torch.Generator().manual_seed(args.seed),
         device=device)
-    lr = args.lr if args.lr else args.blr * args.batch_size / 256.0
+    dist_lib.broadcast_(list(model.state_dict().values()))
+    # blr scales with the global effective batch (batch_size per rank x
+    # world), main_finetune.py:443-449's convention
+    lr = args.lr if args.lr else args.blr * args.batch_size * world / 256.0
     lr_fn = pretrain.mae_lr_fn(
         lr=lr, min_lr=args.min_lr, warmup_epochs=args.warmup_epochs,
         epochs=args.epochs, iters_per_epoch=len(loader),
@@ -187,7 +196,8 @@ def main(args, device="cuda"):
         model, optimizer, args.mask_ratio, lr_fn, seed=args.seed)
 
     out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
+    if is_main:
+        out.mkdir(parents=True, exist_ok=True)
     losses = []
     t0 = time.time()
     for epoch in range(start_epoch, args.epochs):
@@ -199,9 +209,12 @@ def main(args, device="cuda"):
                                   torch.as_tensor(x, device=device))
             step += 1
             n += 1
+        dist_lib.all_reduce_mean_([loss_sum])  # the global batch's loss
         mean_loss = pretrain.check_epoch_loss(float(loss_sum) / max(n, 1),
                                               epoch)
         losses.append(mean_loss)
+        if not is_main:
+            continue
         print(f"epoch {epoch}: loss={mean_loss:.4f} lr={lr_fn(step):.2e}")
         with open(out / "log.txt", "a") as f:
             f.write(json.dumps({"epoch": epoch, "loss": mean_loss}) + "\n")
@@ -215,14 +228,16 @@ def main(args, device="cuda"):
                 str(out / f"checkpoint-{epoch:03d}"), state, epoch,
                 background=args.async_checkpoint,
             )
-    if args.export_torch:
+    if args.export_torch and is_main:
         sd = {k: v.detach().to("cpu", torch.float32)
               for k, v in model.state_dict().items()}
         torch.save({"model": sd, "epoch": args.epochs - 1},
                    out / "mae_pretrained.pth")
         print(f"wrote {out / 'mae_pretrained.pth'}")
-    ckpt_lib.wait_for_checkpoints()  # join background writes, re-raise
-    print(f"pretraining done in {time.time() - t0:.1f}s")
+    if is_main:
+        ckpt_lib.wait_for_checkpoints()  # join background writes, re-raise
+    dist_lib.barrier()  # rank 0's files are on disk before any rank returns
+    dist_lib.print_rank0(f"pretraining done in {time.time() - t0:.1f}s")
     return losses
 
 

@@ -47,9 +47,17 @@ under ``--device_frontend true``), to the device once; 'true' requires it
 for both and raises the reason; 'false' streams.  The speechcommands test
 split always streams, as in JAX.
 
+Data parallelism, as ``cli/finetune.py`` (beyond the reference, whose AST
+recipe is one process with ``nn.DataParallel``): ``python -m
+torch.distributed.run --nproc_per_node N -m tpat_tpu_torch.cli.run_ast
+...`` trains over a global batch of ``-b * N`` rows, each rank on its
+sampler shard; every rank scores the whole validation set, and only rank 0
+writes.  The speechcommands dual eval of the best model is skipped at more
+than one process (rerun with ``--eval``), as in JAX.
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, naming its ROADMAP item: more than one process (A11).
+raises.
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ import numpy as np
 import torch
 
 from tpat_tpu_torch import config as cfg_lib
-from tpat_tpu_torch.cli import card_device, str2bool, world_size
+from tpat_tpu_torch.cli import card_device, str2bool
 from tpat_tpu_torch.cli.finetune import write_args_yaml
 from tpat_tpu_torch.data.datasets import AudiosetDataset
 from tpat_tpu_torch.data.device_cache import maybe_device_cached
@@ -75,6 +83,7 @@ from tpat_tpu_torch.engine import evaluate as eval_lib
 from tpat_tpu_torch.engine.train import TrainModule
 from tpat_tpu_torch.models.vit import AudioViT
 from tpat_tpu_torch.ops.frontend import make_preprocess
+from tpat_tpu_torch.parallel import distributed as dist_lib
 from tpat_tpu_torch.utils import checkpoint as ckpt_lib
 from tpat_tpu_torch.utils import torch_import as ti
 from tpat_tpu_torch.utils.features import FeatureWriter
@@ -161,19 +170,6 @@ def get_parser():
                    help="device-resident dataset cache (data/device_cache.py;"
                         " see cli/finetune.py --device_dataset)")
     return p
-
-
-def refuse_unported(args):
-    """Raise for a flag whose feature the port does not have yet, naming the
-    ROADMAP item that brings it."""
-    refused = [
-        (world_size() > 1, "more than one process (data parallelism)", "A11"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to tpat_tpu_torch yet: ROADMAP {item}"
-            )
 
 
 def configs(args):
@@ -332,8 +328,10 @@ def run_eval(args, model_cfg, data_cfg, loader_val, device) -> float:
     score = _score(args, model, loader, device, data_cfg,
                    custom_rank=args.custom_rank, intensity_band=band,
                    feature_writer=writer)
-    print(f"{args.metrics}: {score:.6f}")
-    np.savetxt(os.path.join(args.exp_dir, args.eval_result_path), [-1, score])
+    if dist_lib.is_main_process():
+        print(f"{args.metrics}: {score:.6f}")
+        np.savetxt(os.path.join(args.exp_dir, args.eval_result_path),
+                   [-1, score])
     return score
 
 
@@ -345,21 +343,24 @@ def main(args, device="cuda") -> float:
         "only fstride=tstride=16 (ast_models.py:258)"
     )
     assert args.model == "ast", f"only the ast model is supported, got {args.model!r}"
-    refuse_unported(args)
-    device = card_device(device)
+    rank, world, device = dist_lib.init_distributed_mode(card_device(device))
+    is_main = rank == 0
     np.random.seed(args.seed)
     data_cfg, model_cfg = configs(args)
     loader_val = _eval_loader(args, args.data_val or args.data_eval, data_cfg,
                               device)
-    os.makedirs(args.exp_dir or ".", exist_ok=True)
+    if is_main:
+        os.makedirs(args.exp_dir or ".", exist_ok=True)
     if args.eval:
         return run_eval(args, model_cfg, data_cfg, loader_val, device)
 
-    write_args_yaml(os.path.join(args.exp_dir, "args.yaml"), vars(args))
+    if is_main:
+        write_args_yaml(os.path.join(args.exp_dir, "args.yaml"), vars(args))
     ds_train = AudiosetDataset(args.data_train, data_cfg, args.label_csv,
                                train=True, seed=args.seed,
                                return_waveform=bool(args.device_frontend))
-    sampler = EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed)
+    sampler = EpochShardSampler(len(ds_train), shuffle=True, seed=args.seed,
+                                world=world, rank=rank)
     loader_train = maybe_device_cached(
         ds_train, args.batch_size, sampler=sampler,
         num_workers=args.num_workers, drop_last=True, device=device,
@@ -368,6 +369,7 @@ def main(args, device="cuda") -> float:
         ds_train, args.batch_size, sampler=sampler,
         num_workers=args.num_workers, drop_last=True,
     )
+    dist_lib.check_equal(len(loader_train), "train steps per epoch")
     drop_loc = model_cfg.drop_loc
     train_cfg = cfg_lib.TrainConfig(
         batch_size=args.batch_size,
@@ -385,6 +387,7 @@ def main(args, device="cuda") -> float:
         warmup=bool(args.warmup),
         keep_rate_iter_mode="per_epoch",
         epoch_base=1,
+        num_hosts=world,
     )
     module = TrainModule(
         model_cfg, train_cfg, data_cfg.loss_type,
@@ -395,11 +398,12 @@ def main(args, device="cuda") -> float:
     state = module.load(initial_state_dict(args, model_cfg), seed=args.seed)
     models_dir = os.path.join(args.exp_dir, "models")
     # AST keeps the FIRST epoch of a tied best (traintest.py:236-247)
+    # the other ranks track the same score without writing
     keeper = ckpt_lib.BestCheckpointKeeper(
         os.path.join(args.ramdisk_dir or args.exp_dir, "models"), models_dir,
         ties="first", async_save=args.async_checkpoint,
         snapshot_on_device=args.best_on_device,
-    )
+    ) if is_main else ckpt_lib.BestScore(ties="first")
 
     progress = []  # progress.pkl (traintest.py:72-76)
     start = time.time()
@@ -414,17 +418,26 @@ def main(args, device="cuda") -> float:
             log_every=args.n_print_steps,
         )
         score = _score(args, state.model, loader_val, device, data_cfg)
-        print(f"epoch {epoch}: train_loss={tstats['loss']:.4f} score={score:.6f}")
+        dist_lib.print_rank0(
+            f"epoch {epoch}: train_loss={tstats['loss']:.4f} score={score:.6f}")
         result[epoch - 1] = [epoch, score, tstats["loss"], 0.0]
-        np.savetxt(os.path.join(args.exp_dir, "result.csv"), result,
-                   delimiter=",")
+        if is_main:
+            np.savetxt(os.path.join(args.exp_dir, "result.csv"), result,
+                       delimiter=",")
         if epoch >= args.first_eval_epoch:
-            keeper.update(score, state, epoch)
+            if is_main:
+                keeper.update(score, state, epoch)
+            else:
+                keeper.track(score, epoch)
         progress.append([epoch, epoch * len(loader_train), keeper.best_epoch,
                          keeper.best_score, time.time() - start])
-        with open(os.path.join(args.exp_dir, "progress.pkl"), "wb") as f:
-            pickle.dump(progress, f)
+        if is_main:
+            with open(os.path.join(args.exp_dir, "progress.pkl"), "wb") as f:
+                pickle.dump(progress, f)
 
+    if not is_main:
+        dist_lib.barrier()  # rank 0's files are on disk before it returns
+        return keeper.best_score
     keeper.finalize()
     best = os.path.join(models_dir, "best_audio_model")
     if os.path.exists(os.path.join(models_dir, "best_model")):
@@ -433,8 +446,12 @@ def main(args, device="cuda") -> float:
                [keeper.best_epoch, keeper.best_score], delimiter=",")
 
     # speechcommands: the best-on-validation model on the held-out test set
-    # too, eval_result.csv = [val acc, 0, test acc, 0] (run.py:230-255)
-    if args.dataset == "speechcommands" and args.data_eval:
+    # too, eval_result.csv = [val acc, 0, test acc, 0] (run.py:230-255);
+    # at more than one process rank 0 skips it, as the JAX CLI does
+    if args.dataset == "speechcommands" and args.data_eval and world > 1:
+        print("[run_ast] skipping the final speechcommands dual eval at more "
+              "than one process; rerun it in one process with --eval")
+    elif args.dataset == "speechcommands" and args.data_eval:
         model = _load_model(best, model_cfg, device)
         val = _score(args, model, loader_val, device, data_cfg, metrics="acc")
         test = _score(args, model, _eval_loader(args, args.data_eval, data_cfg),
@@ -442,6 +459,7 @@ def main(args, device="cuda") -> float:
         np.savetxt(os.path.join(args.exp_dir, "eval_result.csv"),
                    [val, 0.0, test, 0.0])
         print(f"valid acc {val:.6f}, test acc {test:.6f}")
+    dist_lib.barrier()
     return keeper.best_score
 
 

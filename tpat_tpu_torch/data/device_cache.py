@@ -13,7 +13,8 @@ Eligibility (``nondeterminism_reason``): mixup, roll-mag, lr_pad and, on
 the host-fbank path, SpecAug or noise make ``__getitem__`` a function of
 (seed, epoch), so each of them rules the cache out.  The size is guarded
 (``max_bytes``), and a run of more than one process is refused (each
-process's sampler shard walks the whole index set across epochs).
+process's sampler shard walks the whole index set across epochs): 'auto'
+declines it and says why, 'true' raises.
 
 A registry keyed by the dataset's signature (an LRU of 4) shares one
 device copy between loaders of the same items in one process, such as a
@@ -30,7 +31,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpat_tpu_torch.cli import world_size
+from tpat_tpu_torch.parallel.distributed import world_size
 from tpat_tpu_torch.data.sampler import EpochShardSampler
 
 # dataset signature -> (x, y, ids) on the device; a small LRU, so switching
@@ -147,7 +148,7 @@ class DeviceCachedLoader:
             )
         self.dataset = dataset
         self.batch_size = batch_size
-        self.sampler = sampler or EpochShardSampler(
+        self.sampler = sampler if sampler is not None else EpochShardSampler(
             len(dataset), shuffle=shuffle, seed=seed
         )
         self.num_workers = max(num_workers, 1)
@@ -237,6 +238,10 @@ def maybe_device_cached(
         return None
 
     if world_size() > 1:
+        if mode == "auto":
+            print(f"[device_cache] {label}: streamed from the host (a "
+                  f"multi-process run: each rank's shard changes with the "
+                  f"epoch)", flush=True)
         return decline("multi-process run")
     reason = nondeterminism_reason(dataset)
     if reason is not None:

@@ -54,7 +54,7 @@ class DataLoader:
     ):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.sampler = sampler or EpochShardSampler(
+        self.sampler = sampler if sampler is not None else EpochShardSampler(
             len(dataset), shuffle=shuffle, seed=seed
         )
         self.num_workers = max(num_workers, 1)

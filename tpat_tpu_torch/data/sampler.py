@@ -2,9 +2,8 @@
 
 Train sharding follows torch's DistributedSampler: a permutation per epoch
 seeded by seed + epoch, padded to divisibility, rank-strided.  Eval
-sharding is unpadded, so metrics are exact.  The port runs one process
-(rank 0 of 1); the rank and world arguments are kept for data parallelism
-(ROADMAP A11).
+sharding is unpadded, so metrics are exact (``EvalShardSampler`` feeds a
+loader one rank's eval shard under ``--dist_eval``).
 """
 
 from __future__ import annotations
@@ -54,6 +53,22 @@ class EpochShardSampler:
 def eval_shard(dataset_len: int, world: int = 1, rank: int = 0) -> List[int]:
     """Unpadded eval sharding: indices[rank::world]."""
     return list(range(dataset_len))[rank::world]
+
+
+class EvalShardSampler:
+    """A loader's sampler over one rank's unpadded eval shard."""
+
+    def __init__(self, dataset_len: int, world: int = 1, rank: int = 0):
+        self.idx = eval_shard(dataset_len, world, rank)
+
+    def set_epoch(self, epoch: int):
+        pass
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self.idx)
+
+    def __len__(self):
+        return len(self.idx)
 
 
 class WeightedShardSampler(EpochShardSampler):

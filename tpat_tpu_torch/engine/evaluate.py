@@ -20,8 +20,15 @@ emptied is left out of the metrics.
 ``preprocess`` (the device frontend) runs at the head of every eval
 forward with ``specaug=False, train=False``, so the ``mel`` feature that
 ``feature_writer`` (``utils.features.FeatureWriter``, or any callback)
-saves is the frontend's output.  Not ported: the multi-process gather
-(``allgather_rows``, ROADMAP A11).
+saves is the frontend's output.
+
+``allgather=True`` (``--dist_eval`` over several processes): each rank
+scores its own unpadded shard, and the logits and targets of every rank are
+gathered (``allgather_rows``) before the accuracies or the mAP, which are
+then exact over the whole set; the reported CE loss stays the rank's own
+mean of per-batch means, as in JAX (the reference never gathers it).  No
+collective runs per batch, so the JAX CLI's ``n_valid=0`` filler batches
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -34,14 +41,27 @@ import torch
 from tpat_tpu_torch.engine import metrics as metrics_lib
 from tpat_tpu_torch.engine import schedules
 from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.parallel import distributed as dist_lib
 
 
-def _refuse_unported(allgather=False):
-    if allgather:
-        raise NotImplementedError(
-            "the multi-process eval gather (allgather_rows) is not ported "
-            "yet: ROADMAP A11"
-        )
+def allgather_rows(arr: np.ndarray) -> np.ndarray:
+    """Every rank's row block, concatenated in rank order (the
+    ``concat_all_gather`` of ``util/misc.py:350-361`` without its
+    equal-shape restriction): the row counts are gathered first, the ragged
+    blocks padded to the largest, gathered, then trimmed.  Host arrays over
+    the gloo group, which has no ``all_gather`` for CUDA tensors.  Without
+    a process group, ``arr`` itself."""
+    _, world = dist_lib.group_rank_world()
+    if world == 1:
+        return arr
+    counts = [int(c[0]) for c in dist_lib.all_gather_host(
+        np.asarray([arr.shape[0]], np.int64))]
+    m = max(counts)
+    if arr.shape[0] < m:
+        pad = np.zeros((m - arr.shape[0],) + arr.shape[1:], arr.dtype)
+        arr = np.concatenate([arr, pad])
+    blocks = dist_lib.all_gather_host(arr)
+    return np.concatenate([b[:c] for b, c in zip(blocks, counts)])
 
 
 def make_eval_step(
@@ -167,8 +187,8 @@ def evaluate_classification(
     allgather: bool = False,
 ) -> Dict[str, float]:
     """Single-label eval: acc1, acc5 and the CE loss on argmax targets.
-    ``device`` defaults to the model's."""
-    _refuse_unported(allgather)
+    ``device`` defaults to the model's.  ``allgather``: the accuracies over
+    every rank's rows (``allgather_rows``), the loss over this rank's."""
     device = device or next(model.parameters()).device
     step = make_eval_step(model, extract_features=feature_writer is not None,
                           custom_rank=custom_rank,
@@ -178,7 +198,12 @@ def evaluate_classification(
         band_mode=intensity_band is not None,
     )
     tgt_idx = np.argmax(targets, axis=1)
-    acc1, acc5 = metrics_lib.topk_accuracy(logits, tgt_idx, ks=(1, 5))
+    if allgather:
+        acc1, acc5 = metrics_lib.topk_accuracy(
+            allgather_rows(logits), np.argmax(allgather_rows(targets), axis=1),
+            ks=(1, 5))
+    else:
+        acc1, acc5 = metrics_lib.topk_accuracy(logits, tgt_idx, ks=(1, 5))
     logp = torch.log_softmax(torch.from_numpy(logits), dim=-1).numpy()
     # the reference's reported loss is an UNWEIGHTED mean of per-batch CE
     # means (metric_logger.update(loss=...) with n=1,
@@ -208,8 +233,8 @@ def evaluate_multilabel(
 ) -> Dict[str, float]:
     """Multilabel eval: the mean over classes of the average precision.
     The JAX function takes no ablation; ``cli/run_ast.py --eval`` passes
-    both, so here they run as in ``evaluate_classification``."""
-    _refuse_unported(allgather)
+    both, so here they run as in ``evaluate_classification``.
+    ``allgather``: the mAP over every rank's rows (``allgather_rows``)."""
     device = device or next(model.parameters()).device
     step = make_eval_step(model, extract_features=feature_writer is not None,
                           custom_rank=custom_rank,
@@ -218,4 +243,6 @@ def evaluate_multilabel(
         step, batches, batch_size, device, feature_writer,
         band_mode=intensity_band is not None,
     )
+    if allgather:
+        logits, targets = allgather_rows(logits), allgather_rows(targets)
     return {"mAP": metrics_lib.mean_average_precision(logits, targets)}

@@ -21,6 +21,12 @@ draws its masking noise and the decoder's meta-MLP dropout from a
 
 ``check_epoch_loss`` is the pretraining CLI's stop on a non-finite epoch loss
 (``cli/pretrain.py``, as ``tpat_tpu/cli/pretrain.py`` stops).
+
+Data parallelism (``parallel/``): in a process group the step averages the
+gradients across ranks before the AdamW update (one flat ``all_reduce``,
+JAX's ``psum``), and the masking noise is drawn at the global batch's shape
+and cut to the rank's rows, so two ranks take the one-process step of the
+same global batch.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from tpat_tpu_torch.engine import schedules
 from tpat_tpu_torch.models.mae import MaskedAutoencoderViT, Noise
+from tpat_tpu_torch.parallel import distributed as dist_lib
 
 FROZEN_POS = ("pos_embed", "decoder_pos_embed")
 
@@ -126,6 +133,8 @@ def make_mae_train_step(
                            deterministic=deterministic)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dist_lib.all_reduce_mean_(
+            [p.grad for p in model.parameters() if p.grad is not None])
         optimizer.step()
         return loss_sum + loss.detach()
 

@@ -23,8 +23,19 @@ anneal's t = 0 point stays a hybrid step instead of taking the dense one,
 which would turn SpecAug back on.  Batches come as numpy arrays (the host
 loader, copied to the device at the step) or as f32 tensors already on the
 device (the device dataset cache, ``data/device_cache.py``), which the step
-uses where they lie.  The JAX package's compiled-step memo and
-its mesh and tensor parallelism have no counterpart here.
+uses where they lie.
+
+Data parallelism (``parallel/``): in a process group each rank trains on
+its own rows of the global batch.  The parameters start equal (broadcast
+from rank 0 when the state is built), the gradients are averaged across
+ranks before each optimizer update (one flat ``all_reduce`` per update,
+after the ``accum_iter`` micro-steps: JAX's ``psum``), and the loss and
+grad-norm sums are averaged across ranks wherever they are read, so every
+rank logs the global means.  At ``accum_iter`` 1 the grad norm is that of
+the averaged gradient, as in JAX; above 1 each micro-step's norm is the
+rank's own, averaged.  The lr rule counts ``num_hosts`` (the world) in the
+effective batch.  The JAX package's compiled-step memo and its tensor
+parallelism (ROADMAP A11b) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from tpat_tpu_torch.config import TrainConfig, ViTConfig
 from tpat_tpu_torch.engine import optimizer as opt_lib
 from tpat_tpu_torch.engine import schedules
 from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.parallel import distributed as dist_lib
 
 
 def soft_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -131,6 +143,8 @@ class TrainModule:
 
     def _build_state(self, model: AudioViT, seed: Optional[int]) -> TrainState:
         seed = self.train_cfg.seed if seed is None else seed
+        # every rank starts from rank 0's parameters
+        dist_lib.broadcast_(list(model.state_dict().values()))
         return TrainState(
             model=model,
             optimizer=opt_lib.make_optimizer(model, self.model_cfg, self.train_cfg),
@@ -213,6 +227,9 @@ class TrainModule:
             state, x, y, phase, mask_prob, static_rates, keep_rates, num_left
         )
         update = state.step // self.accum
+        if self.accum == 1:
+            # the global batch's gradient (JAX's psum)
+            dist_lib.all_reduce_mean_(grads)
         acc["grad_norm_sum"] += opt_lib.global_grad_norm(grads)
         if self.accum > 1:
             if state.grad_sum is None:
@@ -224,6 +241,7 @@ class TrainModule:
             if self.accum > 1:
                 mean = [g / self.accum for g in state.grad_sum]
                 state.grad_sum = None
+                dist_lib.all_reduce_mean_(mean)
             if self.train_cfg.clip_grad is not None:
                 opt_lib.clip_by_global_norm_(mean, self.train_cfg.clip_grad)
             for p, g in zip(state.params, mean):
@@ -253,14 +271,16 @@ class TrainModule:
         batches: Iterable[Tuple[np.ndarray, np.ndarray]],
         epoch: int,
         log_every: int = 0,
-        log_fn: Callable[[str], None] = print,
+        log_fn: Callable[[str], None] = dist_lib.print_rank0,
         nan_check_every: int = 100,
     ) -> Tuple[TrainState, Dict]:
         """One epoch with the reference's phase rules (``train.py:392-611``).
         ``batches`` yields (x, y) with a fixed batch size, as numpy arrays or
         tensors.  Every ``log_every`` steps the window means of loss and
-        grad norm go to ``log_fn``.  Returns (state, {'loss', 'grad_norm',
-        'phase'})."""
+        grad norm go to ``log_fn`` (rank 0's ``print`` by default).  In a
+        process group every rank must run the same number of steps; the
+        sums read are the means over the ranks.  Returns (state, {'loss',
+        'grad_norm', 'phase'})."""
         cfg = self.train_cfg
         depth = self.model_cfg.depth
         phase = schedules.schedule_phase(
@@ -283,15 +303,21 @@ class TrainModule:
         prev = {"loss_sum": 0.0, "grad_norm_sum": 0.0, "n": 0}
 
         def fetch_and_check(i):
-            """One host read covering every step since the last check."""
+            """One host read covering every step since the last check: the
+            sums' means over the ranks, and a non-finite loss on any rank
+            stops every rank."""
             nonlocal check_from
-            if not bool(acc["finite"]):
+            sums = torch.stack([acc["loss_sum"], acc["grad_norm_sum"],
+                                acc["finite"].float()])
+            dist_lib.all_reduce_mean_([sums])
+            loss_sum, gn_sum, finite = sums.tolist()
+            if finite != 1.0:
                 raise FloatingPointError(
                     f"Non-finite loss between iters {check_from}..{i} of epoch "
                     f"{epoch}, stopping training"
                 )
             check_from = i + 1
-            return float(acc["loss_sum"]), float(acc["grad_norm_sum"])
+            return loss_sum, gn_sum
 
         for i, (x, y) in enumerate(batches):
             if phase != "anneal":
@@ -350,6 +376,7 @@ class TrainModule:
                         "n": n_steps}
             elif nan_check_every and (i + 1) % nan_check_every == 0:
                 fetch_and_check(i)
+        dist_lib.check_equal(n_steps, f"steps of epoch {epoch}")
         if not n_steps:
             return state, {"loss": float("nan"), "grad_norm": float("nan"),
                            "phase": phase}

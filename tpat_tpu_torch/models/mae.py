@@ -12,7 +12,8 @@ normalised pixels).  Masking flavours (``mae.py:486-535``):
 
 Both take their noise as tensors, so a test can hand the port the JAX
 package's noise; the forward draws it from the caller's ``torch.Generator``
-when none is given.
+when none is given, at the global batch's shape under data parallelism,
+cut to the rank's rows (``parallel/mesh.py``).
 
 Decoders (``decoder_mode``):
 
@@ -60,6 +61,7 @@ from tpat_tpu_torch.models.vit import (
 )
 from tpat_tpu_torch.ops import window_attention as wa
 from tpat_tpu_torch.ops.pruning import take_rows
+from tpat_tpu_torch.parallel.mesh import rand_rows
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 META_DROPOUT = 0.125  # timm's meta_mlp drop=(0.125, 0.)
@@ -489,10 +491,9 @@ class MaskedAutoencoderViT(nn.Module):
         ``random_masking_2d`` (((B, T), (B, F)))."""
         if mask_2d:
             t, f = self.cfg.grid
-            return (torch.rand((batch, t), generator=generator, device=device),
-                    torch.rand((batch, f), generator=generator, device=device))
-        return torch.rand((batch, self.cfg.num_patches), generator=generator,
-                          device=device)
+            return (rand_rows((batch, t), generator, device),
+                    rand_rows((batch, f), generator, device))
+        return rand_rows((batch, self.cfg.num_patches), generator, device)
 
     def random_masking(self, x: torch.Tensor, mask_ratio: float,
                        noise: torch.Tensor):

@@ -26,6 +26,9 @@ kernels); ``fc_norm`` stays the plain ``LayerNorm``, as in the JAX model.
 
 Training randomness (drop-path, dropout, 2D time/frequency masking) draws
 from the ``torch.Generator`` the caller passes, never from the global RNG.
+Under data parallelism every mask with a batch axis is drawn at the global
+batch's shape and cut to the rank's rows (``parallel/mesh.py``), so two
+ranks draw what one process draws for the same global batch.
 Dropout (``drop_rate``) sits where the JAX model has it (``vit.py:125,
 128, 253, 494``): after the embedding (``pos_drop``), after the attention's
 ``proj``, and after the MLP's GELU and ``fc2``; ``attn_drop_rate`` stays
@@ -63,6 +66,7 @@ from tpat_tpu_torch.ops import pruning
 from tpat_tpu_torch.ops.fast_gelu import gelu_poly
 from tpat_tpu_torch.ops.attention import attention_with_scores
 from tpat_tpu_torch.ops.layernorm import fused_layernorm
+from tpat_tpu_torch.parallel.mesh import rand_rows
 from tpat_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_plain,
@@ -106,8 +110,7 @@ def _keep_mask(
     ``generator``; None at rate 0 (nothing drawn)."""
     if rate == 0.0:
         return None
-    u = torch.rand(shape, generator=_need_generator(generator, what),
-                   device=device)
+    u = rand_rows(shape, _need_generator(generator, what), device)
     return u < 1.0 - rate
 
 
@@ -467,8 +470,8 @@ def mask2d_noise(
     """Uniform noise over the time rows and the frequency columns of the
     patch grid, whose argsorts pick the tokens 2D masking keeps."""
     return (
-        torch.rand((batch, cfg.grid_t), generator=generator, device=device),
-        torch.rand((batch, cfg.grid_f), generator=generator, device=device),
+        rand_rows((batch, cfg.grid_t), generator, device),
+        rand_rows((batch, cfg.grid_f), generator, device),
     )
 
 

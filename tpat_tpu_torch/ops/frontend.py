@@ -11,6 +11,8 @@ Training draws its random numbers from the caller's ``torch.Generator``
 through ``frontend_draws``, one helper for all of them (SpecAug's widths and
 starts, the noise, its per-clip scale and the per-clip roll), so that a
 caller can hand ``device_frontend`` draws of its own instead.
+Under data parallelism each draw is made at the global batch's shape and
+cut to the rank's rows (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from tpat_tpu_torch.ops import fbank as fb
 from tpat_tpu_torch.ops.pruning import take_rows
+from tpat_tpu_torch.parallel.mesh import draw_rows, rand_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +55,7 @@ def frontend_draws(
     its uniforms ((B, target_length, mel bins)) and the per-clip roll
     ((B,) ints in [-10, 10)), where ``noise`` asks for them."""
     def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=device)
+        return rand_rows(shape, generator, device)
 
     draws = {}
     if cfg.freqm > 0:
@@ -62,8 +65,9 @@ def frontend_draws(
     if cfg.noise:
         draws["noise_scale"] = uniform(batch) / 10.0
         draws["noise"] = uniform(batch, cfg.target_length, cfg.num_mel_bins)
-        draws["roll"] = torch.randint(-10, 10, (batch,), generator=generator,
-                                      device=device)
+        draws["roll"] = draw_rows(
+            lambda n: torch.randint(-10, 10, (n,), generator=generator,
+                                    device=device), batch)
     return draws
 
 

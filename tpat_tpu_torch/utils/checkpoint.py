@@ -8,6 +8,11 @@ all on the CPU, so ``--resume`` continues the LR schedule (``step //
 accum_iter`` updates), the optimizer moments, drop-path and 2D-masking
 draws and the loader epoch.  It loads with ``torch.load(weights_only=True)``.
 
+Under data parallelism only rank 0 writes (the CLIs keep a
+``BestCheckpointKeeper`` there and a ``BestScore`` on the other ranks,
+which tracks the same score without touching the disk); every rank reads
+on resume.
+
 ``BestCheckpointKeeper`` follows the reference's best tracking
 (``main_finetune.py:548-589``): the best so far in a scratch directory,
 saved before the previous best is deleted, and at the end copied to
@@ -171,38 +176,15 @@ def load_state(state, payload: Dict):
     state.grad_sum = None
 
 
-class BestCheckpointKeeper:
-    """Keep only the best checkpoint in a scratch directory; ``finalize``
-    copies it to the output directory and writes the
-    ``best-{epoch:03d}-{score:.4f}.txt`` marker."""
+class BestScore:
+    """The best score and its epoch by the tie rule, without a file."""
 
-    def __init__(
-        self,
-        scratch_dir: str,
-        output_dir: str,
-        ties: str = "last",
-        async_save: bool = False,
-        snapshot_on_device: bool = False,
-    ):
-        self.scratch_dir = scratch_dir
-        self.output_dir = output_dir
-        os.makedirs(scratch_dir, exist_ok=True)
-        os.makedirs(output_dir, exist_ok=True)
+    def __init__(self, ties: str = "last"):
         self.best_score = float("-inf")
         self.best_epoch = -1
         if ties not in ("last", "first"):
             raise ValueError(f"ties must be 'last' or 'first', got {ties!r}")
         self.ties = ties
-        # async_save runs the write and the prune on the background writer;
-        # finalize joins it and raises a failure, after securing the best
-        self.async_save = async_save
-        self._futures: list = []
-        # snapshot_on_device keeps the best payload as a device copy and
-        # writes it once, in finalize: no device-to-host copy per improving
-        # epoch, at the price of one more copy of the state in device
-        # memory; a crash before finalize loses the best
-        self.snapshot_on_device = snapshot_on_device
-        self._snapshot: Optional[Dict] = None
 
     def track(self, score: float, epoch: int) -> bool:
         """Update best_score and best_epoch by the tie rule without touching
@@ -216,6 +198,36 @@ class BestCheckpointKeeper:
         self.best_score = score
         self.best_epoch = epoch
         return True
+
+
+class BestCheckpointKeeper(BestScore):
+    """Keep only the best checkpoint in a scratch directory; ``finalize``
+    copies it to the output directory and writes the
+    ``best-{epoch:03d}-{score:.4f}.txt`` marker."""
+
+    def __init__(
+        self,
+        scratch_dir: str,
+        output_dir: str,
+        ties: str = "last",
+        async_save: bool = False,
+        snapshot_on_device: bool = False,
+    ):
+        super().__init__(ties)
+        self.scratch_dir = scratch_dir
+        self.output_dir = output_dir
+        os.makedirs(scratch_dir, exist_ok=True)
+        os.makedirs(output_dir, exist_ok=True)
+        # async_save runs the write and the prune on the background writer;
+        # finalize joins it and raises a failure, after securing the best
+        self.async_save = async_save
+        self._futures: list = []
+        # snapshot_on_device keeps the best payload as a device copy and
+        # writes it once, in finalize: no device-to-host copy per improving
+        # epoch, at the price of one more copy of the state in device
+        # memory; a crash before finalize loses the best
+        self.snapshot_on_device = snapshot_on_device
+        self._snapshot: Optional[Dict] = None
 
     def _path(self, epoch: int) -> str:
         return os.path.join(self.scratch_dir, f"checkpoint-{epoch:03d}")
