@@ -215,7 +215,25 @@ printing a result:
     25.4 ``run_ast`` (phase 21's flags and corpus) and ``pretrain`` (phase
     23's, decoder 1) on two ranks, two epochs each: equal parameters,
     rank-0-only files, the kernels launched on both ranks;
-26. the kernels line, with the entries ``layernorm_fwd``,
+26. tensor parallelism, two ranks on the one card over gloo (tp = 2, dp
+    = 1), started once by ``torch.distributed.run`` as ``chip_smoke.py
+    --tp-rank <dir>``:
+    26.1 phase 25.1's three steps (dense with 2D masking 0.3, hybrid at
+    bucket 0.8, static; drop-path 0.1) at a global b32 with
+    ``use_fused_layernorm=True``, in bf16 at depth 12 and f32 at depth 4,
+    on both ranks of the model group (each holding half of every block's
+    heads and hidden columns) against one process at
+    ``attention_impl='xla'``: the losses and gathered parameters within
+    ``DP_TOL``, the kept tokens equal in every row without a tie, the
+    ranks' gathered parameters equal, each rank's LayerNorm (B4) launches
+    equal to the one process's and no B1-B3 launch on either side; the ms
+    per step of each rank and the model group's all-reduce ms per step;
+    26.2 phase 20's run (its corpus and ft_esc50.sh's flags) at
+    ``--batch_size 32 --model_axis 2`` over two epochs (dense, static),
+    then ``--eval`` of its best_model on the same two ranks: the logged
+    best acc1 equal to the eval's, best_model loaded strict into a tp = 1
+    ``AudioViT``, no write from rank 1, no B1-B3 launch;
+27. the kernels line, with the entries ``layernorm_fwd``,
     ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
     ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
     ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
@@ -242,7 +260,9 @@ times and bound, and for the attention kernels B1-B3 ``finetune_launches``
 and ``ast_launches``, their launches in phase 20's and phase 21's runs,
 ``waveform_launches`` and ``pretrain_cli_launches``, their launches in
 phases 22 and 23, and (B1-B3 and the window kernels) ``dp_launches``, the
-summed launches of phase 25's ranks (all also counted in ``launches``), ``ast_ms``, their time per
+summed launches of phase 25's ranks (all also counted in ``launches``),
+for the LayerNorm entries ``tp_launches``, those of phase 26's ranks (also
+counted in ``launches``), ``ast_ms``, their time per
 AST hybrid train step, and for B1/B3 the ``dec0_*`` fields, their head_dim
 32 calls per decoder-0 pretrain step (ms, plain, SDPA, bound, launches);
 B2's ``noscore``
@@ -252,6 +272,7 @@ sums its calls without scores beside SDPA with the key mask; the last is
 
 from __future__ import annotations
 
+import ast
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -4005,7 +4026,7 @@ def dp_cli_rank(task, out, argv):
             finetune.dist_eval_batches = dist_batches
             eval_lib.allgather_rows = allgather
     return {"ret": ret, "launches": launches, "writes": writes,
-            "digest": _digest(final["params"]), "wall_s": wall_s,
+            "digest": _digest(final.get("params", [])), "wall_s": wall_s,
             "epochs": [{"epoch": rec["epoch"], "wait_ms": rec["wait_ms"],
                         "wall_ms": rec["wall_ms"],
                         "steps": [s[:2] for s in rec["steps"]]}
@@ -4041,17 +4062,19 @@ def dp_rank_main(task, out):
     dist_lib.leave()
 
 
-def dp_spawn(task, out, argvs=None):
+def dp_spawn(task, out, argvs=None, phase=25):
     """``DP_RANKS`` ranks of ``task`` under ``torch.distributed.run``, the
     CLIs' argv (``{cli: argv}``) handed over in ``<out>/argv.json``; every
     process of the spawn is killed if it outlives ``DP_TIMEOUT``.  Returns
-    each rank's result and the spawn's seconds."""
+    each rank's result and the spawn's seconds.  Phase 26's ranks run
+    ``--tp-rank`` (its one task)."""
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "argv.json"), "w") as f:
         json.dump(argvs or {}, f)
+    flag = ["--dp-rank", task] if phase == 25 else ["--tp-rank"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(DP_RANKS), os.path.abspath(__file__),
-           "--dp-rank", task, out]
+           *flag, out]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
@@ -4061,20 +4084,20 @@ def dp_spawn(task, out, argvs=None):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         text, _ = proc.communicate()
-        raise AssertionError(f"phase 25 {task}: the ranks outlived "
+        raise AssertionError(f"phase {phase} {task}: the ranks outlived "
                              f"{DP_TIMEOUT} s and were killed:\n{text[-6000:]}")
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, 9)
     if proc.returncode:
-        raise AssertionError(f"phase 25 {task}: rc {proc.returncode}:\n"
+        raise AssertionError(f"phase {phase} {task}: rc {proc.returncode}:\n"
                              f"{text[-6000:]}")
     seconds = time.perf_counter() - t0
     res = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
            for r in range(DP_RANKS)]
     for r, x in enumerate(res):
         if (x["rank"], x["world"], x["backend"]) != (r, DP_RANKS, "gloo"):
-            raise AssertionError(f"phase 25 {task}: rank {r} ran as {x}")
+            raise AssertionError(f"phase {phase} {task}: rank {r} ran as {x}")
     return res, seconds
 
 
@@ -4352,6 +4375,282 @@ def data_parallel_path(tmp, paths, walks, ft_launches, ft_summary, smi):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: tensor parallelism, two ranks of one model group on the card
+# ---------------------------------------------------------------------------
+
+TP_AXIS = 2  # model ranks: the two processes on the card (gloo), dp = 1
+TP_BATCH = 32  # the global batch, held whole by both ranks of the group
+TP_SEED = 26
+TP_CLI_FLAGS = ("--batch_size", str(TP_BATCH), "--model_axis", str(TP_AXIS),
+                "--epochs", "2", "--shrink_epochs", "0")  # dense, static
+
+
+def _tp_configs(dtype):
+    """Phase 25.1's configuration (drop-path 0.1, 'fused' attention) at
+    ``dtype``, phase 25's depth, ``use_fused_layernorm=True``, a b32
+    batch."""
+    depth, drop_loc = DP_DEPTH[dtype]
+    cfg, tc = _train_configs(dtype, 0.1)
+    cfg = dataclasses.replace(cfg, depth=depth, drop_loc=drop_loc,
+                              use_fused_layernorm=True)
+    tc = dataclasses.replace(tc, drop_loc=drop_loc, batch_size=TP_BATCH,
+                             num_hosts=1)
+    return cfg, tc
+
+
+def tp_engine_run(dtype, mesh=None):
+    """Phase 26.1's steps (``DP_STEPS``) of ``TrainModule.train_step`` on
+    three seeded b32 batches, on a rank of ``mesh``, whose ``TrainModule``
+    forces the attention to 'xla', or in one process at 'xla' (``mesh``
+    None).  Returns the per-step losses, ms and model-group all-reduce ms,
+    the B1-B3 and B4 launches of the steps, the kept ids of every drop
+    block, and the flat parameters before and after (gathered under
+    ``mesh``)."""
+    from tpat_tpu_torch.cli import profile_train
+    from tpat_tpu_torch.engine.train import TrainModule
+    from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.ops import layernorm as ln
+    from tpat_tpu_torch.ops import pruning
+    from tpat_tpu_torch.ops import qkv_attention as qa
+    from tpat_tpu_torch.parallel import sharding
+
+    cfg, tc = _tp_configs(dtype)
+    if mesh is None:
+        cfg = dataclasses.replace(cfg, attention_impl="xla")
+    sd = sharpened_state_dict(AudioViT(cfg), TP_SEED)
+    data = profile_train.synthetic_batches(cfg, TP_BATCH, len(DP_STEPS),
+                                           TP_SEED, DP_DEVICE)
+    mod = TrainModule(cfg, tc, "ce", iters_per_epoch=2, device=DP_DEVICE,
+                      mesh=mesh)
+    state = mod.load(sd, seed=SEED)
+    impl = mod.model_cfg.attention_impl
+    variants = profile_train.step_variants(cfg)
+    acc = mod._zero_acc()
+    picked, reduce_ms = [], [0.0]
+    topk, reduce = pruning.topk_select, sharding._all_reduce_f32
+
+    def recording_topk(scores, k):
+        idx = topk(scores, k)
+        picked.append((scores.detach(), idx))
+        return idx
+
+    def timed_reduce(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(t, group)
+        torch.cuda.synchronize()
+        reduce_ms[0] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    losses, step_ms, all_reduce_ms, kept = [], [], [], []
+    pruning.topk_select, sharding._all_reduce_f32 = recording_topk, timed_reduce
+    try:
+        qa.launches = qa.prefix_launches = 0  # the path starts here
+        qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+        ln.launches = ln.bwd_launches = 0
+        for name, (x, y) in zip(DP_STEPS, data):
+            kw = variants[name]
+            picked.clear()
+            reduce_ms[0] = 0.0
+            before = acc["loss_sum"].item()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.train_step(state, acc, x, y, **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            all_reduce_ms.append(reduce_ms[0])
+            losses.append(acc["loss_sum"].item() - before)
+            drops = [kw["num_left"][i] if "num_left" in kw else None
+                     for i in cfg.drop_loc] if kw["phase"] != "dense" else []
+            kept.append(_kept_ids(picked, drops, cfg.num_patches))
+        launches = _counts(qa) + (ln.launches, ln.bwd_launches)  # ends here
+    finally:
+        pruning.topk_select, sharding._all_reduce_f32 = topk, reduce
+    full = state.model.state_dict()
+    if mesh is not None:
+        full = sharding.all_gather_state_dict(full, mesh)
+    p0 = torch.cat([v.reshape(-1).float() for v in sd.values()])
+    p1 = torch.cat([full[k].reshape(-1).float().cpu() for k in sd])
+    del state, mod, data, full
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "reduce_ms": all_reduce_ms,
+            "launches": launches, "kept": kept, "p0": p0, "p1": p1,
+            "digest": _digest([p1]), "num_patches": cfg.num_patches,
+            "attention_impl": impl}
+
+
+def tp_rank_main(out):
+    """A rank of phase 26 (``python3 chip_smoke.py --tp-rank <dir>`` under
+    ``torch.distributed.run``): joins the group on the card (gloo), makes
+    the 1 x 2 mesh, runs 26.1's steps, then 26.2's CLI runs (their argv in
+    ``<dir>/argv.json``), and saves its results to ``<dir>/rank<r>.pt``."""
+    from tpat_tpu_torch.parallel import distributed as dist_lib
+    from tpat_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as check_device
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, device = dist_lib.init_distributed_mode(DP_DEVICE)
+    mesh = sharding.make_mesh_2d(world // TP_AXIS, TP_AXIS)
+    with open(os.path.join(out, "argv.json")) as f:
+        argvs = json.load(f)
+    res = {"engine": {d: tp_engine_run(d, mesh) for d in DP_TOL},
+           "finetune": dp_cli_rank("finetune", out, argvs["finetune"]),
+           "eval": dp_cli_rank("finetune", out, argvs["eval"])}
+    if rank:  # rank 0 returns the parameters for the comparison
+        for r in res["engine"].values():
+            r["p1"] = r["p0"] = None
+    res.update(rank=rank, world=world, device=str(device),
+               backend=torch.distributed.get_backend())
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist_lib.leave()
+
+
+def tp_engine_check(one, ranks, smi) -> tuple:
+    """Phase 26.1: ``tp_engine_run`` in one process (``one``) and on the
+    two ranks of the model group: the attention 'xla' and no B1-B3 launch
+    on either side, each rank's B4 launches equal to the one process's,
+    the per-step losses and the parameters within ``DP_TOL``, the ranks'
+    losses and gathered parameters equal, the kept tokens equal in every
+    row without a tie.  Returns the ranks' summed (B4 forward, B4 backward)
+    launches."""
+    ranks = [r["engine"] for r in ranks]
+    total = [0, 0]
+    for dtype, tol in DP_TOL.items():
+        o, rs = one[dtype], [r[dtype] for r in ranks]
+        for x in rs + [o]:
+            if x["attention_impl"] != "xla" or any(x["launches"][:4]):
+                raise AssertionError(f"26.1 {dtype}: {x['attention_impl']} "
+                                     f"attention launched {x['launches']}")
+        for r, x in enumerate(rs):
+            if x["launches"] != o["launches"] or min(x["launches"][4:]) == 0:
+                raise AssertionError(f"26.1 {dtype}: rank {r} launched "
+                                     f"{x['launches']}, one process "
+                                     f"{o['launches']}")
+            total = [a + b for a, b in zip(total, x["launches"][4:])]
+        if rs[0]["losses"] != rs[1]["losses"] or rs[0]["digest"] != rs[1]["digest"]:
+            raise AssertionError(f"26.1 {dtype}: the ranks differ")
+        rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], o["losses"])]
+        if not max(rel) <= tol["loss_rtol"]:
+            raise AssertionError(f"26.1 {dtype}: losses {rs[0]['losses']} vs "
+                                 f"one process {o['losses']}")
+        if not torch.equal(rs[0]["p0"], o["p0"]):
+            raise AssertionError(f"26.1 {dtype}: the ranks started elsewhere")
+        moved = (o["p1"] - o["p0"]).norm().item()
+        param_rel = (rs[0]["p1"] - o["p1"]).norm().item() / moved
+        if not (moved > 0 and param_rel <= tol["param_rel"]):
+            raise AssertionError(f"26.1 {dtype}: parameters differ by "
+                                 f"{param_rel:.3g} of the {moved:.3g} moved")
+        clear = tied = tied_other = 0
+        for step, blocks in enumerate(o["kept"]):
+            for block, one_block in enumerate(blocks):
+                for r, x in enumerate(rs):
+                    try:
+                        c, t, d = _kept_rows_equal(
+                            one_block, x["kept"][step][block],
+                            o["num_patches"])
+                    except AssertionError as e:
+                        raise AssertionError(
+                            f"26.1 {dtype} {DP_STEPS[step]} drop block "
+                            f"{block}, rank {r}: {e}") from None
+                    clear, tied, tied_other = (clear + c, tied + t,
+                                               tied_other + d)
+        log(f"26.1 {dtype} depth {DP_DEPTH[dtype][0]}, tp {TP_AXIS} x b"
+            f"{TP_BATCH} vs one process at 'xla' ({', '.join(DP_STEPS)}), "
+            f"use_fused_layernorm: losses {rs[0]['losses']} vs {o['losses']} "
+            f"(worst rel {max(rel):.3g}, limit {tol['loss_rtol']}); "
+            f"parameters differ by {param_rel:.3g} of the L2 they moved "
+            f"(limit {tol['param_rel']}); kept tokens equal in {clear} rows "
+            f"without a tie, {tied_other} of {tied} tied rows keep another "
+            f"token; launches (B1, B2, B3 rows, B3 cols, B4 fwd, B4 bwd) per "
+            f"rank {rs[0]['launches']} = one process's {o['launches']}; step "
+            f"ms rank 0 {rs[0]['step_ms']}, rank 1 {rs[1]['step_ms']}, one "
+            f"process {o['step_ms']}; model-group all-reduce ms per step "
+            f"(gloo, through the host) rank 0 {rs[0]['reduce_ms']}, rank 1 "
+            f"{rs[1]['reduce_ms']} ({smi})")
+    return tuple(total)
+
+
+def cli_model_cfg(argv):
+    """The model configuration ``cli.finetune`` builds from ``argv``."""
+    from tpat_tpu_torch import config as cfg_lib
+    from tpat_tpu_torch.cli import finetune
+
+    args = finetune.get_args_parser().parse_args(argv)
+    preset = cfg_lib.DATASET_PRESETS[args.dataset]
+    return getattr(cfg_lib, args.model)(
+        num_classes=args.nb_classes,
+        target_length=args.target_length or preset.target_length,
+        drop_loc=tuple(ast.literal_eval(args.drop_loc)),
+        base_keep_rate=args.base_keep_rate)
+
+
+def tp_cli_check(spawned, argvs, smi):
+    """Phase 26.2: the ranks' finetune run and ``--eval`` at ``--model_axis
+    2``: the logged phases, the logged best acc1 equal to the eval's on
+    both ranks, best_model loaded strict into a tp = 1 ``AudioViT``, rank 1
+    wrote nothing, no B1-B3 launch."""
+    from tpat_tpu_torch.models.vit import AudioViT
+
+    argv = argvs["finetune"]
+    out = argv[argv.index("--output_dir") + 1]
+    ranks = [dict(r["finetune"], rank=r["rank"], eval=r["eval"])
+             for r in spawned]
+    r0, r1 = ranks
+    if r0["ret"] != r1["ret"] or r1["writes"] or not r0["writes"]:
+        raise AssertionError(f"26.2: returns {r0['ret']} and {r1['ret']}; "
+                             f"rank 1 wrote {r1['writes'][:5]}")
+    for r in ranks:
+        if any(r["launches"]) or any(r["eval"]["launches"]):
+            raise AssertionError(f"26.2: rank {r['rank']} launched "
+                                 f"{r['launches']}, {r['eval']['launches']}")
+    with open(os.path.join(out, "log.txt")) as f:
+        logs = [json.loads(line) for line in f]
+    if [e["train_phase"] for e in logs] != ["dense", "static"]:
+        raise AssertionError(f"26.2: phases {[e['train_phase'] for e in logs]}")
+    best = r0["ret"]
+    logged = logs[best["best_epoch"]]["test_acc1"]
+    evals = [r["eval"]["ret"]["acc1"] for r in ranks]
+    if evals != [logged] * 2:
+        raise AssertionError(f"26.2: --eval of best_model acc1 {evals}, "
+                             f"logged {logged}")
+    payload = torch.load(os.path.join(out, "best_model"), map_location="cpu",
+                         weights_only=True)
+    AudioViT(cli_model_cfg(argv)).load_state_dict(payload["model"], strict=True)
+    for r in ranks:
+        for rec, e in zip(r["epochs"], logs):
+            log(f"26.2 rank {r['rank']} epoch {rec['epoch']} "
+                f"({e['train_phase']}): ms per step "
+                f"{[s[0] for s in rec['steps']]}; loader wait "
+                f"{sum(rec['wait_ms']) / rec['wall_ms']:.3f} of the epoch's "
+                f"{rec['wall_ms']} ms ({smi})")
+    log(f"26.2: tp {TP_AXIS} x b{TP_BATCH}, two epochs: best acc1 "
+        f"{best['best_score']} at epoch {best['best_epoch']} = --eval of "
+        f"best_model on both ranks; best_model loads strict into a tp = 1 "
+        f"AudioViT; rank 0 made {len(r0['writes'])} writes, rank 1 none; no "
+        f"B1-B3 launch; run {r0['wall_s']} s, eval {r0['eval']['wall_s']} s")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def tensor_parallel_path(tmp, paths, smi):
+    """Phase 26.  Returns the (B4 forward, B4 backward) launches of its
+    ranks."""
+    t0 = time.perf_counter()
+    one = {d: tp_engine_run(d) for d in DP_TOL}
+    out = os.path.join(tmp, "tp_ft_out")
+    argv = finetune_argv(paths, out) + list(TP_CLI_FLAGS)
+    argvs = {"finetune": argv,
+             "eval": argv + ["--eval", "--finetuned_model_path",
+                             os.path.join(out, "best_model")]}
+    ranks, seconds = dp_spawn("tp", os.path.join(tmp, "tp"), argvs, phase=26)
+    log(f"phase 26: the spawn of the ranks took {seconds:.1f} s")
+    launches = tp_engine_check(one, ranks, smi)
+    tp_cli_check(ranks, argvs, smi)
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s; B4 launches of its "
+        f"ranks (fwd, bwd) {launches}")
+    return launches
+
+
 def main():
     with tempfile.TemporaryDirectory() as tmp:
         run_phases(tmp)
@@ -4404,6 +4703,7 @@ def run_phases(tmp):
     device_cache_path(tmp, corpus, smi)
     dp = data_parallel_path(tmp, corpus, walks, finetune_launches, ft_loader,
                             smi)
+    tp = tensor_parallel_path(tmp, corpus, smi)
 
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
     window_launches = {"B5 fwd": esc50[3] + dp[4],
@@ -4536,17 +4836,18 @@ def run_phases(tmp):
     ln_fwd = _sum_walk(ln_per, serve_walk)
     ln_bwd = _sum_walk(ln_per, [c for c in ln_walks[EPOCH_LABELS[4]]
                                 if c[0] == "lnbwd"])
-    for name, line, launches, err, e, per in (
+    for name, line, launches, tp_launches, err, e, per in (
             ("layernorm_fwd", 41, ln_serve_launches + ln_train_launches[0],
-             max(ln_err["fwd"], ln_path_err), ln_fwd,
+             tp[0], max(ln_err["fwd"], ln_path_err), ln_fwd,
              "one b128 bf16 serving forward (24 calls)"),
-            ("layernorm_bwd", 53, ln_train_launches[1],
+            ("layernorm_bwd", 53, ln_train_launches[1], tp[1],
              max(ln_err["bwd"], ln_path_err), ln_bwd,
              "one b128 bf16 static train step (24 calls)")):
         kernels.append(_entry(
             name, "layernorm.cu", f"tpat_tpu/ops/pallas_layernorm.py:{line}",
-            launches, err, e["ms"], e["plain_ms"], bound_of(e["bound"]),
-            e["library_ms"], per, **{k: e[k] for k in DEVICE_KEYS},
+            launches + tp_launches, err, e["ms"], e["plain_ms"],
+            bound_of(e["bound"]), e["library_ms"], per,
+            tp_launches=tp_launches, **{k: e[k] for k in DEVICE_KEYS},
             note="ms, plain_ms and library_ms by CUDA events around each "
                  "call's wrapper, which for calls of tens of microseconds "
                  "include the host's launch rate; the *device_ms fields are "
@@ -4595,5 +4896,7 @@ def run_phases(tmp):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 25
         dp_rank_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 26
+        tp_rank_main(sys.argv[2])
     else:
         main()

@@ -207,12 +207,10 @@ def test_pretrained_head_kernel_reinitialized(corpus, tmp_path):
       "true", "--extract_features_path", "{feats}"], "A7"),
     (["--device_frontend", "true", "--freqm", "0", "--timem", "0"], "A8"),
     (["--device_dataset", "true", "--roll_mag_aug", "true"], "A10"),
-    (["--model_axis", "2"], "A11"),
 ])
 def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
-    """--model_axis > 1 (tensor parallelism) is refused, naming ROADMAP
-    A11b, the half of A11 still to port.  The flags of A7, A8 and A10,
-    refused until they were ported, now run: feature extraction
+    """The flags of A7, A8 and A10, refused until they were ported, now
+    run: feature extraction
     writes every block's features for the analysis (held against the JAX
     CLI in test_torch_features.py), the device frontend trains beside
     tpat_tpu.cli.finetune with the same flags (without SpecAug or noise):
@@ -247,8 +245,15 @@ def test_unported_flags_refused(corpus, tmp_path, flags, item, monkeypatch):
                                              "roll-mag"):
             _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *flags))
         return
-    with pytest.raises(NotImplementedError, match="A11b"):
-        _run(_argv(corpus, tmp_path / "o", "--epochs", "1", *flags))
+
+
+def test_model_axis_must_divide_the_world(corpus, tmp_path):
+    """--model_axis 2 (tensor parallelism, held across ranks in
+    test_torch_tensor_parallel.py) in one process: JAX's assert that the
+    model axis divide the device count, one process per device here."""
+    with pytest.raises(AssertionError,
+                       match="model_axis 2 must divide device count 1"):
+        _run(_argv(corpus, tmp_path / "o", "--epochs", "1", "--model_axis", "2"))
 
 
 def test_device_frontend_specaug_only_in_the_dense_epoch(corpus, tmp_path,

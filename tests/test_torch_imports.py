@@ -33,7 +33,7 @@ MODULES = (
     "tpat_tpu_torch.utils.features, tpat_tpu_torch.ops.frontend, "
     "tpat_tpu_torch.cli.pretrain, tpat_tpu_torch.data.device_cache, "
     "tpat_tpu_torch.parallel, tpat_tpu_torch.parallel.distributed, "
-    "tpat_tpu_torch.parallel.mesh"
+    "tpat_tpu_torch.parallel.mesh, tpat_tpu_torch.parallel.sharding"
 )
 FORBIDDEN = ("jax", "flax", "tpat_tpu")  # top-level package names
 LIBRARY_ATTENTION = "scaled_dot_product_attention"
@@ -142,10 +142,11 @@ def test_chip_smoke_names_library_attention_in_one_yardstick_only():
 
 
 def test_parallel_package_is_covered():
-    """The data-parallel package is among the modules imported above and
-    the sources scanned above."""
-    for name in ("parallel", "parallel.distributed", "parallel.mesh"):
+    """The parallel package (data and tensor parallelism) is among the
+    modules imported above and the sources scanned above."""
+    for name in ("parallel", "parallel.distributed", "parallel.mesh",
+                 "parallel.sharding"):
         assert f"tpat_tpu_torch.{name}" in MODULES.split(", ")
     scanned = {os.path.relpath(p, PORT) for p in _sources(".py")}
-    for f in ("__init__.py", "distributed.py", "mesh.py"):
+    for f in ("__init__.py", "distributed.py", "mesh.py", "sharding.py"):
         assert os.path.join("parallel", f) in scanned

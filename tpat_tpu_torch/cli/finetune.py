@@ -62,10 +62,21 @@ verdict on an existing run directory is broadcast, so every rank stops
 together.  Feature extraction needs one process, and ``--device_dataset``
 streams (``true`` raises) at more than one.
 
+Tensor parallelism: ``--model_axis tp`` (> 1) splits the N ranks into N /
+tp data ranks of tp model ranks each (``parallel/sharding.py``), and
+``tp`` must divide N (JAX's assert and message).  The JAX CLI puts an (n /
+tp) x tp mesh over its n devices and feeds each host's ``batch_size`` rows
+to it; here one process drives one device, so the ranks of a model group
+load the same ``batch_size`` rows (``EpochShardSampler`` and the
+``--dist_eval`` shards run over the data ranks), the lr rule counts the
+data ranks as ``num_hosts``, and the global batch is ``batch_size * N /
+tp``.  The attention runs the plain path (the kernels are batch-parallel
+only); checkpoints, ``best_model`` and ``last_checkpoint`` hold the
+gathered tp = 1 state, written by rank 0.
+
 ``main(args, device="cuda")`` runs on the card unless the caller passes
 another device (the CPU tests pass ``device="cpu"``); without CUDA it
-raises.  Refused, naming its ROADMAP item: ``--model_axis`` > 1 (tensor
-parallelism, A11b).
+raises.
 """
 
 from __future__ import annotations
@@ -92,9 +103,10 @@ from tpat_tpu_torch.data.loader import DataLoader
 from tpat_tpu_torch.data.sampler import EpochShardSampler, EvalShardSampler
 from tpat_tpu_torch.engine import evaluate as eval_lib
 from tpat_tpu_torch.engine.train import TrainModule
-from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.models.vit import AudioViT, shard_model_
 from tpat_tpu_torch.ops.frontend import make_preprocess
 from tpat_tpu_torch.parallel import distributed as dist_lib
+from tpat_tpu_torch.parallel import sharding
 from tpat_tpu_torch.utils import checkpoint as ckpt_lib
 from tpat_tpu_torch.utils import torch_import as ti
 from tpat_tpu_torch.utils.features import FeatureWriter
@@ -150,8 +162,9 @@ def get_args_parser():
     p.add_argument("--mask_f_prob", type=float, default=0.0)
     p.add_argument("--num_workers", default=4, type=int)
     p.add_argument("--model_axis", default=1, type=int,
-                   help="tensor-parallel model axis: not ported "
-                        "(ROADMAP A11b)")
+                   help="tensor-parallel model axis: ranks per model "
+                        "group (parallel/sharding.py); must divide the "
+                        "process count")
     p.add_argument("--target_length", type=int, default=None,
                    help="override the preset target length (testing)")
     p.add_argument("--device_frontend", type=str2bool, default=False,
@@ -230,17 +243,18 @@ def args_checker(args):
         assert args.mask_2d, "mask_t_prob > 0 requires --mask_2d True"
 
 
-def refuse_unported(args):
-    """Raise for a flag whose feature the port does not have yet, naming the
-    ROADMAP item that brings it."""
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            "--model_axis > 1 (tensor parallelism) is not ported to "
-            "tpat_tpu_torch yet: ROADMAP A11b"
-        )
+def make_mesh(args, world: int) -> Optional[sharding.Mesh2D]:
+    """The (world / model_axis) x model_axis mesh under ``--model_axis`` >
+    1 (``tpat_tpu/cli/finetune.py:264-271``), else None."""
+    if args.model_axis <= 1:
+        return None
+    assert world % args.model_axis == 0, (
+        f"model_axis {args.model_axis} must divide device count {world}"
+    )
+    return sharding.make_mesh_2d(world // args.model_axis, args.model_axis)
 
 
-def build_everything(args, device):
+def build_everything(args, device, mesh=None):
     """(model_cfg, data_cfg, TrainModule, train loader or None, eval
     loader)."""
     preset = cfg_lib.DATASET_PRESETS[args.dataset]
@@ -286,9 +300,10 @@ def build_everything(args, device):
             args.data_eval, data_cfg, args.label_csv, train=False,
             return_waveform=wf,
         )
-    # each rank loads only its shard (torch DistributedSampler semantics,
-    # main_finetune.py:292-294); the global batch is batch_size * world
-    rank, world = dist_lib.group_rank_world()
+    # each data rank loads only its shard (torch DistributedSampler
+    # semantics, main_finetune.py:292-294); the global batch is batch_size
+    # * the data ranks
+    rank, world = dist_lib.data_rank_world()
     dd_mode = args.device_dataset
     loader_train = None
     if ds_train is not None:
@@ -341,9 +356,9 @@ def build_everything(args, device):
         model_cfg, train_cfg, data_cfg.loss_type,
         iters_per_epoch=len(loader_train) if loader_train else 1,
         device=device, custom_rank=args.custom_rank,
-        preprocess=make_preprocess(data_cfg) if wf else None,
+        preprocess=make_preprocess(data_cfg) if wf else None, mesh=mesh,
     )
-    return model_cfg, data_cfg, module, loader_train, loader_val
+    return module.model_cfg, data_cfg, module, loader_train, loader_val
 
 
 def _read_finetuned(path: str, model_cfg) -> Dict[str, torch.Tensor]:
@@ -398,8 +413,8 @@ def dist_eval_batches(ds_val, batch_size, num_workers=4, world=None,
     indices, no wrap padding, so the gathered metrics are exact.  A rank
     whose shard is empty (fewer rows than ranks) gets one batch of a row
     with no ids, which scores no row.  ``world`` and ``rank`` default to
-    the process group's."""
-    g_rank, g_world = dist_lib.group_rank_world()
+    the data ranks'."""
+    g_rank, g_world = dist_lib.data_rank_world()
     world = g_world if world is None else world
     rank = g_rank if rank is None else rank
     sampler = EvalShardSampler(len(ds_val), world, rank)
@@ -507,21 +522,23 @@ def main(args, device="cuda") -> Optional[Dict]:
     does.  Returns the eval stats with ``--eval``, else the best score and
     epoch."""
     args_checker(args)
-    refuse_unported(args)
     # joins the process group under torchrun (or the JAX names); a no-op
     # for one process
     rank, world, device = dist_lib.init_distributed_mode(card_device(device))
+    mesh = make_mesh(args, world)
     is_main = rank == 0
     np.random.seed(args.seed)
 
     model_cfg, data_cfg, module, loader_train, loader_val = build_everything(
-        args, device
+        args, device, mesh
     )
     sd = initial_state_dict(args, model_cfg)
 
     if args.eval:
         model = AudioViT(model_cfg, device=device)
         model.load_state_dict(sd, strict=True)
+        if mesh is not None:
+            shard_model_(model, mesh)
         return run_eval(args, model, module, loader_val, device)
 
     out = Path(args.output_dir)
@@ -568,12 +585,14 @@ def main(args, device="cuda") -> Optional[Dict]:
                 f"[{args.start_epoch}, {args.epochs}): no trace would "
                 "ever be written"
             )
-    # the other ranks track the same score without writing
+    # the other ranks track the same score without writing (and join the
+    # gathers of a state cut by a model axis)
     keeper = ckpt_lib.BestCheckpointKeeper(
         args.ramdisk_dir or str(out / "scratch"), str(out),
         async_save=args.async_checkpoint,
         snapshot_on_device=args.best_on_device,
-    ) if is_main else ckpt_lib.BestScore()
+    ) if is_main else ckpt_lib.BestScore(
+        snapshot_on_device=args.best_on_device)
     metric = "mAP" if args.dataset == "audioset" else "acc1"
 
     start = time.time()
@@ -603,15 +622,12 @@ def main(args, device="cuda") -> Optional[Dict]:
         )
         if epoch >= args.first_eval_ep:
             # never the -1.0 placeholder of an epoch without eval
-            if is_main:
-                keeper.update(score, state, epoch)
-            else:
-                keeper.track(score, epoch)
-        if (is_main and args.save_every_epochs
+            keeper.update(score, state, epoch)
+        if (args.save_every_epochs
                 and (epoch + 1) % args.save_every_epochs == 0):
             ckpt_lib.save_checkpoint(
                 str(out / "last_checkpoint"), state, epoch,
-                background=args.async_checkpoint,
+                background=args.async_checkpoint, write=is_main,
             )
         log = {
             **{f"train_{k}": v for k, v in train_stats.items()},
@@ -630,8 +646,8 @@ def main(args, device="cuda") -> Optional[Dict]:
                     tb.add_scalar(f"test/{k}", v, epoch)
             tb.flush()
 
+    keeper.finalize()
     if is_main:
-        keeper.finalize()
         ckpt_lib.wait_for_checkpoints()
         if tb is not None:
             tb.close()

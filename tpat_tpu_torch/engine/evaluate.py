@@ -28,7 +28,10 @@ gathered (``allgather_rows``) before the accuracies or the mAP, which are
 then exact over the whole set; the reported CE loss stays the rank's own
 mean of per-batch means, as in JAX (the reference never gathers it).  No
 collective runs per batch, so the JAX CLI's ``n_valid=0`` filler batches
-have no counterpart.
+have no counterpart.  Under a model axis every rank of a model group runs
+the forward (its collectives need each of them) on the same rows, and the
+gather takes each data rank's rows once (``evaluate.py:131-140``'s
+dedupe).
 """
 
 from __future__ import annotations
@@ -45,12 +48,14 @@ from tpat_tpu_torch.parallel import distributed as dist_lib
 
 
 def allgather_rows(arr: np.ndarray) -> np.ndarray:
-    """Every rank's row block, concatenated in rank order (the
+    """Every data rank's row block, concatenated in rank order (the
     ``concat_all_gather`` of ``util/misc.py:350-361`` without its
     equal-shape restriction): the row counts are gathered first, the ragged
     blocks padded to the largest, gathered, then trimmed.  Host arrays over
     the gloo group, which has no ``all_gather`` for CUDA tensors.  Without
-    a process group, ``arr`` itself."""
+    a process group, ``arr`` itself.  Under a model axis the ranks of a
+    model group hold the same rows: only each data rank's first (model
+    rank 0) block is kept."""
     _, world = dist_lib.group_rank_world()
     if world == 1:
         return arr
@@ -61,7 +66,8 @@ def allgather_rows(arr: np.ndarray) -> np.ndarray:
         pad = np.zeros((m - arr.shape[0],) + arr.shape[1:], arr.dtype)
         arr = np.concatenate([arr, pad])
     blocks = dist_lib.all_gather_host(arr)
-    return np.concatenate([b[:c] for b, c in zip(blocks, counts)])
+    tp = world // dist_lib.data_rank_world()[1]
+    return np.concatenate([b[:c] for b, c in zip(blocks[::tp], counts[::tp])])
 
 
 def make_eval_step(

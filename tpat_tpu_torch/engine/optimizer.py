@@ -22,9 +22,10 @@ micro-batch.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tpat_tpu_torch.config import TrainConfig, ViTConfig
 from tpat_tpu_torch.engine import schedules
@@ -135,15 +136,30 @@ def make_lr_fn(
     return lr_fn
 
 
-def global_grad_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every gradient, in f32, on the device."""
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+def global_grad_norm(
+    grads: Sequence[torch.Tensor],
+    sharded: Optional[Sequence[bool]] = None,
+    group=None,
+) -> torch.Tensor:
+    """L2 norm over every gradient, in f32, on the device.  Under a model
+    axis (``group``, the model group) the squares of the gradients that
+    ``sharded`` marks as cut are summed over the group, and a replicated
+    gradient counts once."""
+    squares = [(g.float() ** 2).sum() for g in grads]
+    if group is None:
+        return torch.sqrt(sum(squares))
+    cut = torch.stack([s for s, c in zip(squares, sharded) if c]).sum()
+    dist.all_reduce(cut, group=group)
+    return torch.sqrt(sum(s for s, c in zip(squares, sharded) if not c) + cut)
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float):
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None):
     """Scale the gradients in place by min(1, max_norm / norm), as
-    ``optax.clip_by_global_norm`` does (no epsilon in the norm)."""
-    norm = global_grad_norm(grads)
+    ``optax.clip_by_global_norm`` does (no epsilon in the norm); ``norm``
+    defaults to ``global_grad_norm(grads)``."""
+    if norm is None:
+        norm = global_grad_norm(grads)
     factor = torch.clamp(max_norm / norm, max=1.0)
     for g in grads:
         g.mul_(factor.to(g.dtype))

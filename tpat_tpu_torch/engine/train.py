@@ -33,9 +33,19 @@ after the ``accum_iter`` micro-steps: JAX's ``psum``), and the loss and
 grad-norm sums are averaged across ranks wherever they are read, so every
 rank logs the global means.  At ``accum_iter`` 1 the grad norm is that of
 the averaged gradient, as in JAX; above 1 each micro-step's norm is the
-rank's own, averaged.  The lr rule counts ``num_hosts`` (the world) in the
-effective batch.  The JAX package's compiled-step memo and its tensor
-parallelism (ROADMAP A11b) have no counterpart here.
+rank's own, averaged.  The lr rule counts ``num_hosts`` (the data ranks)
+in the effective batch.  The JAX package's compiled-step memo has no
+counterpart here.
+
+Tensor parallelism (``mesh``, a ``parallel.sharding.Mesh2D`` with a model
+axis, ``train.py:104-115, 345-376``): the attention is forced to
+``attention_impl='xla'`` (the kernels are batch-parallel only, so a model
+axis launches no B1-B3; ``use_fused_layernorm`` is left as it is), the
+state is built whole on every rank (rank 0's, broadcast) and then cut
+(``models.vit.shard_model_``), so the AdamW moments of a cut weight are
+cut alike; the gradient mean and the metric sums run over the data group,
+and the grad norm sums the squares of each cut gradient over the model
+group.  Checkpoints gather the cuts (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -50,8 +60,9 @@ import torch.nn.functional as F
 from tpat_tpu_torch.config import TrainConfig, ViTConfig
 from tpat_tpu_torch.engine import optimizer as opt_lib
 from tpat_tpu_torch.engine import schedules
-from tpat_tpu_torch.models.vit import AudioViT
+from tpat_tpu_torch.models.vit import AudioViT, shard_model_
 from tpat_tpu_torch.parallel import distributed as dist_lib
+from tpat_tpu_torch.parallel import sharding
 
 
 def soft_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -88,6 +99,8 @@ class TrainState:
     generator: torch.Generator
     step: int = 0
     grad_sum: Optional[List[torch.Tensor]] = None  # inside an accumulation window
+    # which of ``params`` the model axis cuts (all False without one)
+    sharded: Optional[List[bool]] = None
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
@@ -110,9 +123,19 @@ class TrainModule:
     # on-device preprocessing of each batch:
     # fn(x, generator, specaug: bool, train: bool) -> model input
     preprocess: Optional[Callable] = None
+    # a (data, model) mesh (parallel.sharding.make_mesh_2d); None: the
+    # process group's ranks are all data ranks
+    mesh: Optional[sharding.Mesh2D] = None
 
     def __post_init__(self):
         tc = self.train_cfg
+        self.tp = self.mesh.tp if self.mesh is not None else 1
+        if self.tp > 1:
+            mc = self.model_cfg
+            sharding.check_divisible(
+                mc.num_heads, int(mc.embed_dim * mc.mlp_ratio), self.tp)
+            if mc.attention_impl != "xla":
+                self.model_cfg = dataclasses.replace(mc, attention_impl="xla")
         if tc.base_keep_rate < 1.0:
             if tuple(tc.drop_loc) != tuple(self.model_cfg.drop_loc):
                 raise ValueError(
@@ -143,13 +166,31 @@ class TrainModule:
 
     def _build_state(self, model: AudioViT, seed: Optional[int]) -> TrainState:
         seed = self.train_cfg.seed if seed is None else seed
-        # every rank starts from rank 0's parameters
+        # every rank starts from rank 0's parameters, then takes its cut
         dist_lib.broadcast_(list(model.state_dict().values()))
-        return TrainState(
+        if self.mesh is not None:
+            shard_model_(model, self.mesh)
+        state = TrainState(
             model=model,
             optimizer=opt_lib.make_optimizer(model, self.model_cfg, self.train_cfg),
             generator=torch.Generator(device=self.device).manual_seed(seed),
         )
+        names = {id(p): n for n, p in model.named_parameters()}
+        state.sharded = [bool(sharding.param_pspec(names[id(p)])) and self.tp > 1
+                         for p in state.params]
+        return state
+
+    def _data_mean_(self, tensors: List[torch.Tensor]):
+        """Each tensor's mean over the data ranks, in place."""
+        if self.mesh is None:
+            dist_lib.all_reduce_mean_(tensors)
+        elif self.mesh.dp > 1:
+            dist_lib.all_reduce_mean_(tensors, group=self.mesh.data_group)
+
+    def _grad_norm(self, state: TrainState, grads) -> torch.Tensor:
+        return opt_lib.global_grad_norm(
+            grads, state.sharded,
+            self.mesh.model_group if self.tp > 1 else None)
 
     def init(self, seed: Optional[int] = None) -> TrainState:
         """Fresh parameters from ``seed`` (the train config's by default)."""
@@ -229,8 +270,8 @@ class TrainModule:
         update = state.step // self.accum
         if self.accum == 1:
             # the global batch's gradient (JAX's psum)
-            dist_lib.all_reduce_mean_(grads)
-        acc["grad_norm_sum"] += opt_lib.global_grad_norm(grads)
+            self._data_mean_(grads)
+        acc["grad_norm_sum"] += self._grad_norm(state, grads)
         if self.accum > 1:
             if state.grad_sum is None:
                 state.grad_sum = [g.clone() for g in grads]
@@ -241,9 +282,11 @@ class TrainModule:
             if self.accum > 1:
                 mean = [g / self.accum for g in state.grad_sum]
                 state.grad_sum = None
-                dist_lib.all_reduce_mean_(mean)
+                self._data_mean_(mean)
             if self.train_cfg.clip_grad is not None:
-                opt_lib.clip_by_global_norm_(mean, self.train_cfg.clip_grad)
+                opt_lib.clip_by_global_norm_(
+                    mean, self.train_cfg.clip_grad,
+                    norm=self._grad_norm(state, mean))
             for p, g in zip(state.params, mean):
                 p.grad = g
             opt_lib.set_lr(state.optimizer, self.lr_fn(update))
@@ -309,7 +352,7 @@ class TrainModule:
             nonlocal check_from
             sums = torch.stack([acc["loss_sum"], acc["grad_norm_sum"],
                                 acc["finite"].float()])
-            dist_lib.all_reduce_mean_([sums])
+            self._data_mean_([sums])
             loss_sum, gn_sum, finite = sums.tolist()
             if finite != 1.0:
                 raise FloatingPointError(

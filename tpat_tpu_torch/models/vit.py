@@ -47,6 +47,17 @@ masking (AudioMAE only, as in JAX) in training; the custom-rank ablation
 (``custom_rank``: per-patch mel mean or std in place of the attention
 importance), ``forward_masked``'s intensity band with its host-double
 kept-count tables, and ``remat``.
+
+Tensor parallelism (``parallel/sharding.py``): ``shard_model_`` cuts a
+built model in place over a mesh's model axis.  Each block's ``qkv`` and
+``fc1`` become column-parallel (``qkv`` cut by heads), its ``proj`` and
+``fc2`` row-parallel, each followed by the model group's all-reduce and
+then the replicated bias; the attention runs the plain path over the
+rank's heads, and its importance scores, each rank's mean over its own
+heads, are averaged over the model group before any top-k, so every rank
+keeps the same tokens.  Every other draw is replicated across the model
+group; fc1's dropout is drawn at the full hidden width and cut to the
+rank's columns.
 """
 
 from __future__ import annotations
@@ -66,6 +77,7 @@ from tpat_tpu_torch.ops import pruning
 from tpat_tpu_torch.ops.fast_gelu import gelu_poly
 from tpat_tpu_torch.ops.attention import attention_with_scores
 from tpat_tpu_torch.ops.layernorm import fused_layernorm
+from tpat_tpu_torch.parallel import sharding
 from tpat_tpu_torch.parallel.mesh import rand_rows
 from tpat_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
@@ -138,6 +150,37 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class _ParallelLinear(Linear):
+    """A ``Linear`` holding this rank's cut of a tensor-parallel weight
+    (``parallel/sharding.py``), its collectives over ``group``."""
+
+    def __init__(self, lin: Linear, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor], group):
+        nn.Module.__init__(self)
+        self.out_features, self.in_features = weight.shape
+        self.weight = nn.Parameter(weight)
+        self.bias = None if bias is None else nn.Parameter(bias)
+        self.compute_dtype = lin.compute_dtype
+        self.group = group
+
+
+class ColumnParallelLinear(_ParallelLinear):
+    """Rows of the weight and the bias cut: f, then the local product."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(sharding.copy_to_model(x, self.group))
+
+
+class RowParallelLinear(_ParallelLinear):
+    """Columns of the weight cut: the local product, g (the sum over the
+    model group), then the replicated bias, added once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return sharding.reduce_from_model(y, self.group) + self.bias.to(dt)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with f32 statistics and f32 parameters; the output is cast
     to ``out_dtype`` (``vit.py:157-162``)."""
@@ -202,6 +245,8 @@ class Mlp(nn.Module):
         super().__init__()
         dt = compute_dtype(cfg)
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
+        self.hidden = hidden
+        self.cols = slice(None)  # this rank's hidden columns
         self.fc1 = Linear(cfg.embed_dim, hidden, compute_dtype=dt)
         self.fc2 = Linear(hidden, cfg.embed_dim, compute_dtype=dt)
         self.use_poly = cfg.gelu_impl == "poly" or (
@@ -239,6 +284,8 @@ class PrunedAttention(nn.Module):
         self.cfg = cfg
         self.qkv = Linear(c, 3 * c, bias=cfg.qkv_bias, compute_dtype=dt)
         self.proj = Linear(c, c, compute_dtype=dt)
+        self.num_heads = cfg.num_heads  # this rank's heads
+        self.model_group, self.tp = None, 1
 
     def forward(
         self,
@@ -255,15 +302,15 @@ class PrunedAttention(nn.Module):
         kernel = cfg.attention_impl != "xla"
         if token_mask is None:
             attend = fused_qkv_attention if kernel else fused_qkv_attention_plain
-            out, scores = attend(qkv, cfg.num_heads, mode, e)
+            out, scores = attend(qkv, self.num_heads, mode, e)
         elif kernel and prefix_len is not None:
             out, scores = fused_qkv_attention_prefix(
-                qkv, e + prefix_len, cfg.num_heads, mode, e
+                qkv, e + prefix_len, self.num_heads, mode, e
             )
         else:
             b, n, c3 = qkv.shape
             q, k, v = (
-                t.reshape(b, n, cfg.num_heads, -1).transpose(1, 2)
+                t.reshape(b, n, self.num_heads, -1).transpose(1, 2)
                 for t in qkv.chunk(3, dim=-1)
             )
             out, scores = attention_with_scores(
@@ -271,6 +318,8 @@ class PrunedAttention(nn.Module):
                 token_mask=token_mask, need_scores=need_scores,
             )
             out = out.transpose(1, 2).reshape(b, n, c3 // 3)
+        if scores is not None and self.model_group is not None:
+            scores = sharding.model_mean(scores, self.model_group, self.tp)
         return _apply_keep(self.proj(out), proj_keep, cfg.drop_rate), scores
 
 
@@ -299,23 +348,26 @@ class Block(nn.Module):
         proj's dropout ((B, n_attn, D)), the attention branch's drop-path
         ((B, 1, 1)), the MLP's two dropouts ((B, n_mlp, hidden) and (B,
         n_mlp, D)) and the MLP branch's drop-path; None where the rate is 0
-        and all None in eval."""
+        and all None in eval.  Under a model axis fc1's mask is drawn at
+        the full hidden width and cut to the rank's columns."""
         if not self.training:
             return dict.fromkeys(("proj", "path1", "fc1", "fc2", "path2"))
         d = self.mlp.fc2.out_features
-        hidden = self.mlp.fc1.out_features
         dr, pr = self.drop_rate, self.drop_path_rate
 
         def mask(shape, rate, what):
             return _keep_mask(shape, rate, generator, device, what)
 
-        return {
+        noise = {
             "proj": mask((batch, n_attn, d), dr, "dropout"),
             "path1": mask((batch, 1, 1), pr, "drop-path"),
-            "fc1": mask((batch, n_mlp, hidden), dr, "dropout"),
+            "fc1": mask((batch, n_mlp, self.mlp.hidden), dr, "dropout"),
             "fc2": mask((batch, n_mlp, d), dr, "dropout"),
             "path2": mask((batch, 1, 1), pr, "drop-path"),
         }
+        if noise["fc1"] is not None:
+            noise["fc1"] = noise["fc1"][..., self.mlp.cols]
+        return noise
 
     def _attention(self, x, noise, **kw):
         attn_out, scores = self.attn(self.norm1(x), proj_keep=noise["proj"], **kw)
@@ -814,3 +866,45 @@ class AudioViT(nn.Module):
             if drop:
                 prefix = int(num_left[i])
         return self.pool_and_head(tokens, token_mask)
+
+
+@torch.no_grad()
+def shard_model_(model: AudioViT, mesh: sharding.Mesh2D) -> AudioViT:
+    """Cut ``model`` in place over ``mesh``'s model axis: each block's
+    ``qkv`` (by heads) and ``fc1`` column-parallel, its ``proj`` and
+    ``fc2`` row-parallel, the attention over the rank's heads.  Parameter
+    names stay those of the tp = 1 model (``parallel/sharding.py``'s
+    table).  The model keeps ``mesh`` as ``model.mesh``.  Refuses a
+    model axis that does not divide the heads or the hidden width, and an
+    attention other than the plain one (the kernels take every head of a
+    sample; a model axis runs ``attention_impl='xla'``, as in JAX)."""
+    cfg = model.cfg
+    tp, rank = mesh.tp, mesh.model_rank
+    model.mesh = mesh
+    if tp == 1:
+        return model
+    sharding.check_divisible(cfg.num_heads, model.blocks[0].mlp.hidden, tp)
+    if cfg.attention_impl != "xla":
+        raise ValueError("tensor parallelism runs attention_impl='xla', not "
+                         f"{cfg.attention_impl!r}")
+    group = mesh.model_group
+
+    def cut(lin, name, cls):
+        w = sharding.shard_tensor(f"{name}.weight", lin.weight.detach(), tp,
+                                  rank)
+        b = lin.bias
+        if b is not None and cls is ColumnParallelLinear:
+            b = sharding.shard_tensor(f"{name}.bias", b.detach(), tp, rank)
+        return cls(lin, w, None if b is None else b.detach().clone(), group)
+
+    for i, blk in enumerate(model.blocks):
+        attn, mlp, pre = blk.attn, blk.mlp, f"blocks.{i}."
+        attn.qkv = cut(attn.qkv, pre + "attn.qkv", ColumnParallelLinear)
+        attn.proj = cut(attn.proj, pre + "attn.proj", RowParallelLinear)
+        attn.num_heads = cfg.num_heads // tp
+        attn.model_group, attn.tp = group, tp
+        mlp.fc1 = cut(mlp.fc1, pre + "mlp.fc1", ColumnParallelLinear)
+        mlp.fc2 = cut(mlp.fc2, pre + "mlp.fc2", RowParallelLinear)
+        width = mlp.hidden // tp
+        mlp.cols = slice(rank * width, (rank + 1) * width)
+    return model

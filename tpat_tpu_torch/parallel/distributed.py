@@ -27,6 +27,12 @@ refused.  Gloo runs
 mean needs; the host-side collectives (objects, row gathers, barriers) run
 on a gloo group: the default group under gloo, a gloo subgroup made once
 under NCCL.
+
+Under a model axis (``parallel/sharding.py``) the ranks split into data and
+model groups.  ``make_mesh_2d`` makes its mesh the process's active one
+(``set_mesh``), and ``data_rank_world`` then gives the rank's data rank and
+the data world, which the global-batch draws, the eval shards and the
+eval gather read; without a mesh they are the group's rank and world.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 _HOST_GROUP = None  # the gloo subgroup of an NCCL run
+_MESH = None  # the active (data, model) mesh, set by sharding.make_mesh_2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,11 +174,12 @@ def init_distributed_mode(
 
 
 def leave() -> None:
-    """Leave the process group (and its gloo subgroup), if joined."""
-    global _HOST_GROUP
+    """Leave the process group (and its gloo subgroup and mesh), if
+    joined."""
+    global _HOST_GROUP, _MESH
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
-    _HOST_GROUP = None
+    _HOST_GROUP = _MESH = None
 
 
 def group_rank_world() -> Tuple[int, int]:
@@ -179,6 +187,20 @@ def group_rank_world() -> Tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def set_mesh(mesh) -> None:
+    """Make ``mesh`` (a ``sharding.Mesh2D``, or None) the active mesh."""
+    global _MESH
+    _MESH = mesh
+
+
+def data_rank_world() -> Tuple[int, int]:
+    """(data rank, data world): the active mesh's, else the group's (rank,
+    world)."""
+    if _MESH is not None:
+        return _MESH.data_rank, _MESH.dp
+    return group_rank_world()
 
 
 def world_size() -> int:
@@ -226,14 +248,16 @@ def _flat_(tensors: Sequence[torch.Tensor], collective) -> None:
             off += n
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks, in place: one flat
-    ``all_reduce`` per dtype.  Nothing happens without a group; a group of
-    one still runs the collective."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its mean over the ranks of ``group`` (the
+    default group when None), in place: one flat ``all_reduce`` per dtype.
+    Nothing happens without a process group; a group of one still runs the
+    collective."""
     def mean(flat):
-        dist.all_reduce(flat)
-        if dist.get_world_size() > 1:
-            flat /= dist.get_world_size()
+        dist.all_reduce(flat, group=group)
+        n = dist.get_world_size(group)
+        if n > 1:
+            flat /= n
 
     _flat_(tensors, mean)
 

@@ -10,7 +10,10 @@ rule: each rank draws at the global shape ``world*B`` from its generator,
 seeded alike on every rank, and keeps its own rows (``rand_rows``,
 ``draw_rows``).  A run over two ranks then equals the one-process run of
 the same global batches, drop-path, dropout, 2D masking, SpecAug, noise
-and the MAE masking included.  The JAX mesh itself has no counterpart.
+and the MAE masking included.  Under a model axis the rule runs over the
+data ranks (``distributed.data_rank_world``): the ranks of one model group
+hold the same rows and draw the same masks.  The 2-D mesh is
+``sharding.make_mesh_2d``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Callable
 
 import torch
 
-from tpat_tpu_torch.parallel.distributed import group_rank_world
+from tpat_tpu_torch.parallel.distributed import data_rank_world
 
 
 def rank_rows(batch: int, rank: int) -> slice:
@@ -29,9 +32,9 @@ def rank_rows(batch: int, rank: int) -> slice:
 
 def draw_rows(draw: Callable[[int], torch.Tensor], batch: int) -> torch.Tensor:
     """``draw(world * batch)`` (a tensor whose leading axis has that many
-    rows), cut to this rank's ``batch`` rows; ``draw(batch)`` without a
-    process group."""
-    rank, world = group_rank_world()
+    rows), cut to this rank's ``batch`` rows, over the data ranks;
+    ``draw(batch)`` at one data rank."""
+    rank, world = data_rank_world()
     if world == 1:
         return draw(batch)
     return draw(world * batch)[rank_rows(batch, rank)]

@@ -13,6 +13,14 @@ Under data parallelism only rank 0 writes (the CLIs keep a
 which tracks the same score without touching the disk); every rank reads
 on resume.
 
+Under a model axis (``parallel/sharding.py``) a payload holds the tp = 1
+layout all the same: ``state_payload`` gathers the model's cuts and the
+AdamW moments of every cut parameter across the model group, so files and
+checkpoint interchange do not change, and ``load_state`` cuts what it
+loads.  The gather is a collective: the ranks of rank 0's model group that
+do not write join it through ``BestScore.update`` and ``finalize`` and
+``save_checkpoint(..., write=False)``.
+
 ``BestCheckpointKeeper`` follows the reference's best tracking
 (``main_finetune.py:548-589``): the best so far in a scratch directory,
 saved before the previous best is deleted, and at the end copied to
@@ -33,6 +41,8 @@ from typing import Dict, Optional
 
 import torch
 
+from tpat_tpu_torch.parallel import sharding
+
 PAYLOAD_KEYS = ("model", "optimizer", "step", "epoch", "generator")
 
 
@@ -50,10 +60,27 @@ def _copy(obj, device: Optional[str] = "cpu"):
     return obj
 
 
-def state_payload(state, epoch: int, device: Optional[str] = "cpu") -> Dict:
-    """The checkpoint payload of an ``engine.train.TrainState``, every
-    tensor copied (to ``device``, or where it lies when None) on the
-    calling thread, so no later step can change it."""
+def tp_layout(state):
+    """(mesh, the state-dict name of each of ``state.params``) of a state
+    cut by a model axis; None at tp = 1."""
+    mesh = getattr(state.model, "mesh", None)
+    if mesh is None or mesh.tp == 1:
+        return None
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return mesh, [names[id(p)] for p in state.params]
+
+
+def joins_gather(state) -> bool:
+    """True on a rank of rank 0's model group under a model axis: rank 0's
+    payload needs its cuts."""
+    layout = tp_layout(state)
+    return layout is not None and layout[0].data_rank == 0
+
+
+def local_payload(state, epoch: int, device: Optional[str] = "cpu") -> Dict:
+    """The payload of this rank's state as it lies (under a model axis, its
+    cuts), every tensor copied (to ``device``, or where it lies when None)
+    on the calling thread, so no later step can change it."""
     return {
         "model": _copy(state.model.state_dict(), device),
         "optimizer": _copy(state.optimizer.state_dict(), device),
@@ -61,6 +88,26 @@ def state_payload(state, epoch: int, device: Optional[str] = "cpu") -> Dict:
         "epoch": int(epoch),
         "generator": state.generator.get_state().clone(),
     }
+
+
+def gather_payload(payload: Dict, layout) -> Dict:
+    """A ``local_payload`` in the tp = 1 layout, on the host: the cuts
+    gathered across the model group (a collective) under ``layout``
+    (``tp_layout``); ``payload`` itself without one."""
+    if layout is None:
+        return payload
+    mesh, names = layout
+    return {**payload,
+            "model": sharding.all_gather_state_dict(payload["model"], mesh),
+            "optimizer": sharding.all_gather_optimizer_state(
+                payload["optimizer"], names, mesh)}
+
+
+def state_payload(state, epoch: int) -> Dict:
+    """The checkpoint payload of an ``engine.train.TrainState`` on the
+    host, in the tp = 1 layout (under a model axis a collective of the
+    model group)."""
+    return gather_payload(local_payload(state, epoch), tp_layout(state))
 
 
 def _write(path: str, payload: Dict):
@@ -120,12 +167,20 @@ def _join_all(futures):
 
 def save_checkpoint(
     path: str, state, epoch: int, *, background: bool = False,
+    write: bool = True,
 ) -> Optional[Future]:
     """Write ``state``'s payload to ``path``.  The payload is copied to host
     memory here; with ``background=True`` only the write runs on the
     background writer, and the Future is returned (``wait_for_checkpoints``
-    before the file is read or the process exits)."""
-    return save_payload(path, state_payload(state, epoch), background=background)
+    before the file is read or the process exits).  ``write=False`` (a
+    rank that does not write) only joins the gather where rank 0's
+    payload needs it."""
+    if write:
+        return save_payload(path, state_payload(state, epoch),
+                            background=background)
+    if joins_gather(state):
+        state_payload(state, epoch)
+    return None
 
 
 def save_payload(path: str, payload: Dict, *, background: bool = False
@@ -168,23 +223,55 @@ def restore_checkpoint(path: str) -> Dict:
 
 def load_state(state, payload: Dict):
     """Put a payload's model, optimizer, step and generator into ``state``
-    (an ``engine.train.TrainState`` of the same configuration)."""
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    (an ``engine.train.TrainState`` of the same configuration; under a
+    model axis, this rank's cut of them)."""
+    model_sd, opt_sd = payload["model"], payload["optimizer"]
+    layout = tp_layout(state)
+    if layout is not None:
+        mesh, names = layout
+        model_sd = sharding.shard_state_dict(model_sd, mesh.tp, mesh.model_rank)
+        opt_sd = sharding.shard_optimizer_state(opt_sd, names, mesh.tp,
+                                                mesh.model_rank)
+    state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.load_state_dict(opt_sd)
     state.step = int(payload["step"])
     state.generator.set_state(payload["generator"])
     state.grad_sum = None
 
 
 class BestScore:
-    """The best score and its epoch by the tie rule, without a file."""
+    """The best score and its epoch by the tie rule, without a file.  On a
+    rank of rank 0's model group under a model axis, ``update`` and
+    ``finalize`` join the gathers of the writer's payloads (with
+    ``snapshot_on_device``, as the writer does: a device copy of the
+    cuts at each best, gathered in ``finalize``)."""
 
-    def __init__(self, ties: str = "last"):
+    def __init__(self, ties: str = "last", snapshot_on_device: bool = False):
         self.best_score = float("-inf")
         self.best_epoch = -1
         if ties not in ("last", "first"):
             raise ValueError(f"ties must be 'last' or 'first', got {ties!r}")
         self.ties = ties
+        self.snapshot_on_device = snapshot_on_device
+        self._snapshot = None  # (local payload on the device, tp_layout)
+
+    def update(self, score: float, state, epoch: int) -> bool:
+        """``track``, joining the writer's gather of the state."""
+        if not self.track(score, epoch):
+            return False
+        if joins_gather(state):
+            if self.snapshot_on_device:
+                self._snapshot = (local_payload(state, epoch, device=None),
+                                  tp_layout(state))
+            else:
+                state_payload(state, epoch)
+        return True
+
+    def finalize(self) -> None:
+        """Join the gather of the writer's device snapshot."""
+        if self._snapshot is not None:
+            gather_payload(*self._snapshot)
+            self._snapshot = None
 
     def track(self, score: float, epoch: int) -> bool:
         """Update best_score and best_epoch by the tie rule without touching
@@ -225,9 +312,10 @@ class BestCheckpointKeeper(BestScore):
         # snapshot_on_device keeps the best payload as a device copy and
         # writes it once, in finalize: no device-to-host copy per improving
         # epoch, at the price of one more copy of the state in device
-        # memory; a crash before finalize loses the best
+        # memory; a crash before finalize loses the best.  Under a model
+        # axis the copy holds the cuts, gathered in finalize.
         self.snapshot_on_device = snapshot_on_device
-        self._snapshot: Optional[Dict] = None
+        self._snapshot = None  # (local payload on the device, tp_layout)
 
     def _path(self, epoch: int) -> str:
         return os.path.join(self.scratch_dir, f"checkpoint-{epoch:03d}")
@@ -242,7 +330,8 @@ class BestCheckpointKeeper(BestScore):
         if not self.track(score, epoch):
             return False
         if self.snapshot_on_device:
-            self._snapshot = state_payload(state, epoch, device=None)
+            self._snapshot = (local_payload(state, epoch, device=None),
+                              tp_layout(state))
             return True
         new_path = self._path(epoch)
         new_name = os.path.basename(new_path)
@@ -281,7 +370,7 @@ class BestCheckpointKeeper(BestScore):
         failed save was rolled back by its prune, so best_epoch names a
         checkpoint that was written.  Returns the best_model path."""
         if self._snapshot is not None:
-            snap = self._snapshot
+            snap = gather_payload(*self._snapshot)
             save_payload(self._path(snap["epoch"]), _copy(snap))
             self._snapshot = None
         pending, self._futures = self._futures, []
