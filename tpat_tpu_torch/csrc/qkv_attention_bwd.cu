@@ -7,66 +7,107 @@
 // What it computes, per (batch b, head h), from the packed (B, N, 3C) qkv,
 // the output cotangent dO (B, N, C) and an optional score cotangent ds
 // (B, N) f32, already pre-scaled and zero on the extra tokens by the wrapper:
-//   p     = softmax(q . k^T * D^-1/2) in f32 over the keys [0, kv_valid),
-//           normalised by a reciprocal multiply (keys past kv_valid: p = 0);
+//   p     = softmax(q . k^T * D^-1/2) in f32 over the keys [0, kv_valid)
+//           (keys past kv_valid: p = 0);
 //   dp    = dO . v^T in f32 from the working-type operands, plus ds[key] on
 //           the rows the score reads ('patch_mean': [extra, kv_valid);
 //           'cls': row 0);
-//   dlog  = p (dp - sum_k dp p), in f32, rounded to the working type;
+//   dlog  = p (dp - delta), delta = sum_k dp p, in f32, rounded to the
+//           working type;
 //   dq    = (dlog . k) * D^-1/2, dk = (dlog^T . q) * D^-1/2, accumulated in
 //           f32 and rounded once;
 //   dv    = (p rounded to the working type)^T . dO;
 // written into the packed (B, N, 3C) layout [dq | dk | dv], as the TPU kernel
-// writes them.  The rounding points are the TPU kernel's.
+// writes them.
 //
-// What is different on Hopper, and the design.  dk and dv are sums over every
-// query row; on the TPU one grid step holds the whole (N, N) tile of a head,
-// but CTAs on the card run in no order.  So, with no atomics and nothing
-// (B, H, N, N) in HBM, two kernels run in turn on the stream:
-//   1. rows: one CTA per (b, h, 64-row query tile).  It writes dq and the
-//      f32 (B, H, 3, N) scratch [m | 1/l | delta].
-//   2. cols: one CTA per (b, h, 64-key tile).  It holds its K and V tiles,
-//      walks every query tile, recomputes p from m and 1/l and dp, and
-//      accumulates dk and dv in registers; it writes them once.  Key tiles
-//      wholly past kv_valid write zeros.
+// What is different on Hopper.  dk and dv are sums over every query row; on
+// the TPU one grid step holds the whole (N, N) tile of a head, but CTAs on
+// the card run in no order.  So, with no atomics and nothing (B, H, N, N) in
+// HBM, two kernels run in turn on the stream:
+//   1. rows: one CTA per (b, h, 64-row query tile); it writes dq and the
+//      per-row statistics into the f32 (B, H, 3, N) scratch [m | 1/l |
+//      delta] (the wgmma body only delta);
+//   2. cols: one CTA per (b, h, 64-key tile); it holds its K and V tiles,
+//      walks every query tile, rebuilds p and dlog, and accumulates dk and
+//      dv in registers; it writes them once.  Key tiles wholly past
+//      kv_valid write zeros.
 // Deterministic: every sum has one owner and a fixed order.
 //
-// bf16 (every path of the model): the bound is bytes (0.98 ms per b128
-// hybrid-0.8 step, against ~10 N^2 D FLOPs that the tensor cores do in a
-// fraction of it), so every product runs as mma.sync m16n8k16 with f32
+// Three bodies, chosen by dtype and head_dim (a dispatch, not a fallback):
+//
+// bf16 at head_dim 64 and 32: the wgmma bodies
+// (qkv_attention_bwd_rows_wgmma_kernel, qkv_attention_bwd_cols_wgmma_kernel,
+// on attention_wgmma.cuh).  What bounds it on an H100 (NVIDIA H100 80GB
+// HBM3, 700 W): bytes at D 64 (0.98 ms per b128 hybrid-0.8 step against ~10
+// N^2 D FLOPs that the tensor cores do in a fraction of it), and at D 32
+// (N = 513) FLOPs and the exps of p, which the two kernels take twice (once
+// each).  The earlier mma.sync body swept the keys twice in the rows kernel
+// (m, l and delta online; then dlog) and recomputed s and dp a third time in
+// the cols kernel.  This body takes the forward's row log-sum-exp L
+// (qkv_attention.cu writes it when the call is recorded for autograd) and
+// the forward's bf16 output O:
+//   - p = 2^(s c - L log2 e), c = D^-1/2 log2 e folded into one FMA: no
+//     online max or sum and no division in either kernel;
+//   - delta = rowsum(dO * O) from the saved output, in the rows kernel's
+//     prologue (dO . O equals sum_k p_k dp_k up to O's rounding, held to
+//     the unchanged limit of 2e-2 of the largest gradient); with a score
+//     cotangent, the rows the score reads add sum_k p_k ds_k, which costs
+//     one extra q.k^T sweep over the keys (no dO.v^T) in the CTAs that hold
+//     such a row;
+//   - rows: ONE sweep over the keys: s = q.k^T and dp = dO.v^T as wgmma
+//     m64n64k16 (Q, dO and the K, V tiles K-major from shared memory), dlog
+//     on the accumulator registers, rounded to bf16 as the A operand of
+//     dq += dlog.k (m64nDk16, the K tile MN-major); it writes delta for the
+//     cols kernel;
+//   - cols: s^T = k.q^T and dp^T = v.dO^T with the key tile as the A
+//     operand, so p^T and dlog^T come out in the accumulator layout of the
+//     warpgroup's 64 keys and, rounded to bf16, are the register A operands
+//     of dv += p^T.dO and dk += dlog^T.q (dO and q MN-major).  Each logit is
+//     the same exact bf16 products, accumulated in f32 over the same k16
+//     steps as in the rows kernel (the one product_nt code with the
+//     operands' roles swapped).  Whether wgmma sums the 16 products inside a
+//     step in the same order with the roles swapped is not documented and
+//     not checked, so the two kernels' p may differ in the last bits; the
+//     gradients need no more than the limit they are held to;
+//   - tiles by TMA (tensor maps over the packed (3C, N, B) qkv and the (C,
+//     N, B) dO, boxes of one head's D columns x 64 rows of one sample, the
+//     128-byte swizzle at D 64 and the 64-byte one at D 32); a producer warp
+//     loads the CTA's own tiles once and streams the other side's through a
+//     ring of two stages (K and V in rows, Q and dO in cols) under full /
+//     empty mbarriers; one consumer warpgroup of 64 rows (keys in cols), 160
+//     threads, 48 KB (D 64) or 24 KB (D 32) of shared memory, so that two or
+//     more CTAs share an SM and overlap each other's softmax, products and
+//     loads.
+//   The rounding points: dlog and p rounded to bf16 before their products,
+//   as the JAX kernel; delta is taken from the bf16 O instead of the sum of
+//   p dp.
+//
+// bf16 at head_dim 80 (in the chip checks' grids, on no model path): the
+// earlier mma.sync body (qkv_attention_bwd_rows_mma_kernel, _cols_mma_),
+// kept because its 160-byte row fits neither TMA swizzle span as one box
+// (two boxes a row, or no swizzle, would fit: a follow-up in ROADMAP); its
+// forward writes no L, so its rows kernel sweeps the keys twice (s and dp
+// with m, l and the unnormalised delta online, rescaled as l is; then dlog
+// and dq),
+// and the cols kernel rebuilds p from m and 1/l.  mma.sync m16n8k16 with f32
 // accumulation on bf16 tiles staged by 16-byte cp.async into padded rows,
-// the streamed tiles double-buffered (attention_mma.cuh).  Four warps, each
-// owning 16 rows of the CTA's tile; keys (rows kernel) or queries (cols
-// kernel) are processed 16 at a time.
-//   rows: two sweeps over the keys.  Sweep 1 computes s = q.k^T and
-//     dp = dO.v^T and keeps m, l and the unnormalised D_run = sum_k
-//     exp(s - m) dp_k online (D_run is rescaled by exp(m_old - m_new) as l
-//     is), so delta = D_run / l at its end.  Sweep 2 recomputes s and dp,
-//     forms dlog on the accumulator fragments and feeds it, rounded to bf16,
-//     as the A operand of dq += dlog.k (k read transposed by ldmatrix).
-//     The Q and dO fragments stay in registers.
-//   cols: the products are taken with the key tile as the A operand:
-//     s^T = k.q^T and dp^T = v.dO^T, so p^T and dlog^T come out in the
-//     accumulator layout of the warp's 16 keys and, rounded to bf16, are the
-//     A operands of dv += round(p)^T.dO and dk += dlog^T.q straight from
-//     registers (dO and q read transposed by ldmatrix), with no trip through
-//     shared memory.  Each logit is the same exact bf16 products summed over
-//     the same k-steps in the same order as in the rows kernel (the one
-//     product_nt code with the operands' roles swapped).
+// the streamed tiles double-buffered (attention_mma.cuh); four warps, each
+// owning 16 rows of the CTA's tile.
 // f32 (the parity checks, held to plain at 1e-4 of the largest gradient):
 // tensor-core f32 would be TF32, so it stays on exact FMA loops with 4 x 4
 // register micro-tiles over f32 tiles in shared memory; its rows kernel
-// sweeps the keys three times (m and l; delta; dlog and dq).
-// Both bodies are instantiated at head dims 32 (the MAE's plain decoder),
-// 64 and 80.
+// sweeps the keys three times (m and l; delta; dlog and dq).  Neither of
+// these two bodies reads O or L.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -167,12 +208,16 @@ __device__ __forceinline__ bool score_row(int row, int mode, int extra,
   return false;
 }
 
+using bf16 = __nv_bfloat16;
+
 struct Args {
   const void* qkv;
   const void* dout;
   const float* ds;
   void* dqkv;
   float* stats;
+  const void* out;   // the forward's output (the wgmma bodies only)
+  const float* lse;  // the forward's row log-sum-exp (the wgmma bodies only)
   int n, num_heads, mode, extra, kv_valid;
   float scale;
 };
@@ -462,11 +507,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Shared memory of the bf16 kernels, in bytes: six padded tiles (rows: Q,
+// ---- bf16 at head_dim 80: the mma.sync bodies ----------------------------
+
+// Shared memory of the mma.sync kernels, in bytes: six padded tiles (rows: Q,
 // dO, two K, two V; cols: K, V, two Q, two dO) and, for the cols kernel, two
 // buffers of the per-query [m | 1/l | delta | score-row flag].
 template <int D>
-struct SmemBf16 {
+struct SmemMma {
   static constexpr int kElems = mma::Tile<D>::kElems;
   static constexpr size_t kTiles = 6 * mma::Tile<D>::kBytes;
   static constexpr size_t kVec = 2 * 4 * mma::kRows * sizeof(float);
@@ -476,9 +523,9 @@ struct SmemBf16 {
 
 template <int D>
 __global__ void __launch_bounds__(mma::kThreads)
-    qkv_attention_bwd_rows_bf16_kernel(const Args a) {
+    qkv_attention_bwd_rows_mma_kernel(const Args a) {
   using mma::bf16;
-  constexpr int kElems = SmemBf16<D>::kElems;
+  constexpr int kElems = SmemMma<D>::kElems;
   constexpr int kR = mma::kRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
@@ -650,9 +697,9 @@ __global__ void __launch_bounds__(mma::kThreads)
 
 template <int D>
 __global__ void __launch_bounds__(mma::kThreads)
-    qkv_attention_bwd_cols_bf16_kernel(const Args a) {
+    qkv_attention_bwd_cols_mma_kernel(const Args a) {
   using mma::bf16;
-  constexpr int kElems = SmemBf16<D>::kElems;
+  constexpr int kElems = SmemMma<D>::kElems;
   constexpr int kR = mma::kRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
@@ -660,7 +707,7 @@ __global__ void __launch_bounds__(mma::kThreads)
   bf16* qs = vs + kElems;       // two buffers
   bf16* dos = qs + 2 * kElems;  // two buffers
   // per query of a tile: m | 1/l | delta | score-row flag; two buffers
-  float* vec = reinterpret_cast<float*>(smem_raw + SmemBf16<D>::kTiles);
+  float* vec = reinterpret_cast<float*>(smem_raw + SmemMma<D>::kTiles);
 
   const int n = a.n;
   const int kv = a.kv_valid;
@@ -783,18 +830,445 @@ __global__ void __launch_bounds__(mma::kThreads)
 }
 
 template <int D>
-cudaError_t launch_bf16(bool rows, const Args& a, int batch,
+cudaError_t launch_mma(bool rows, const Args& a, int batch,
                         cudaStream_t stream) {
-  auto kernel = rows ? qkv_attention_bwd_rows_bf16_kernel<D>
-                     : qkv_attention_bwd_cols_bf16_kernel<D>;
+  auto kernel = rows ? qkv_attention_bwd_rows_mma_kernel<D>
+                     : qkv_attention_bwd_cols_mma_kernel<D>;
   const size_t smem =
-      rows ? SmemBf16<D>::kRowsBytes : SmemBf16<D>::kColsBytes;
+      rows ? SmemMma<D>::kRowsBytes : SmemMma<D>::kColsBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n + mma::kRows - 1) / mma::kRows, a.num_heads, batch);
   kernel<<<grid, mma::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---- bf16 at head_dim 32 and 64: wgmma, TMA, p from the saved L ----------
+
+// Shared memory of the wgmma bodies past their 1024-byte aligned base: the
+// CTA's own two tiles (rows: Q, dO; cols: K, V), then the ring's stages of
+// the streamed pair (rows: K, V; cols: Q, dO), then the per-token f32
+// vectors of the sample and head, each ceil(n / 64) * 64 long (rows: ds, if
+// given; cols: L log2 e and delta), staged once per CTA: read from device
+// memory inside the loop they cost the cols kernel 0.27 of 0.62 ms at b128,
+// N 257 (NVIDIA H100 80GB HBM3, 700 W).
+template <int D>
+struct SmemWgmma {
+  static constexpr uint32_t kTile = wgmma::Tile<D>::kBytes;
+  static constexpr uint32_t kOwn = 0;          // + kTile: the second one
+  static constexpr uint32_t kStage0 = 2 * kTile;  // stage s at + 2 s kTile
+  static constexpr uint32_t kVec = kStage0 + wgmma::kStages * 2 * kTile;
+  // with `vectors` vectors of n tokens, + the alignment
+  static size_t bytes(int n, int vectors) {
+    return kVec + static_cast<size_t>(vectors) * padded(n) * sizeof(float) +
+           1024;
+  }
+  static __host__ __device__ int padded(int n) {
+    return (n + wgmma::kRows - 1) / wgmma::kRows * wgmma::kRows;
+  }
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Sets up the barriers of a wgmma backward CTA (thread 0), then syncs.
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty,
+                                              uint64_t* own) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < wgmma::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], wgmma::kConsumers / 32);
+    }
+    hopper::mbar_init(own, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// The producer thread: the CTA's own two tiles (map0 and map1 at columns
+// col0 and col1, rows r0) on `own`, then per step st of `steps` the
+// streamed pair (columns scol0 and scol1, rows (st % wrap) * 64; the second
+// tile only where `both(st)`) into the ring.
+template <int D, typename Both>
+__device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full,
+                                        uint64_t* empty, uint64_t* own,
+                                        const CUtensorMap* map0, int col0,
+                                        const CUtensorMap* map1, int col1,
+                                        int r0, const CUtensorMap* smap0,
+                                        int scol0, const CUtensorMap* smap1,
+                                        int scol1, int steps, int wrap,
+                                        Both both, int b) {
+  constexpr uint32_t kT = SmemWgmma<D>::kTile;
+  hopper::mbar_arrive_expect_tx(own, 2 * kT);
+  wgmma::tma_load_3d(smem + SmemWgmma<D>::kOwn, map0, own, col0, r0, b);
+  wgmma::tma_load_3d(smem + SmemWgmma<D>::kOwn + kT, map1, own, col1, r0, b);
+  for (int st = 0; st < steps; ++st) {
+    const int s = st % wgmma::kStages;
+    hopper::mbar_wait(&empty[s], ((st / wgmma::kStages) & 1) ^ 1);
+    const bool two = both(st);
+    const int row = (st % wrap) * wgmma::kRows;
+    unsigned char* dst = smem + SmemWgmma<D>::kStage0 + s * 2 * kT;
+    hopper::mbar_arrive_expect_tx(&full[s], two ? 2 * kT : kT);
+    wgmma::tma_load_3d(dst, smap0, &full[s], scol0, row, b);
+    if (two) wgmma::tma_load_3d(dst + kT, smap1, &full[s], scol1, row, b);
+  }
+}
+
+// A consumer warp hands stage s back.
+__device__ __forceinline__ void release(uint64_t* empty, int s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&empty[s]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(wgmma::kThreads)
+    qkv_attention_bwd_rows_wgmma_kernel(
+        const __grid_constant__ CUtensorMap qkv_map,
+        const __grid_constant__ CUtensorMap do_map, const Args a) {
+  using S = SmemWgmma<D>;
+  constexpr uint32_t kT = S::kTile;
+  constexpr int kR = wgmma::kRows;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[wgmma::kStages], empty[wgmma::kStages], own;
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t base = hopper::smem_addr(smem);
+
+  const int n = a.n;
+  const int kv = a.kv_valid;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int c = a.num_heads * D;
+  const int q0 = blockIdx.x * kR;
+  const int nkt = (kv + kR - 1) / kR;
+  const float* ds =
+      a.ds == nullptr ? nullptr : a.ds + static_cast<size_t>(b) * n;
+  // the extra q.k^T sweep for sum_k p ds: only where a row reads the score
+  const bool ds_sweep =
+      ds != nullptr && (a.mode == kModePatchMean
+                            ? q0 + kR > a.extra && q0 < kv
+                            : q0 == 0);
+  const int steps = ds_sweep ? 2 * nkt : nkt;
+  init_barriers(full, empty, &own);
+
+  if (threadIdx.x >= wgmma::kConsumers) {  // the producer warp
+    if (threadIdx.x == wgmma::kConsumers)
+      produce<D>(smem, full, empty, &own, &qkv_map, h * D, &do_map, h * D, q0,
+                 &qkv_map, c + h * D, &qkv_map, 2 * c + h * D, steps, nkt,
+                 [&](int st) { return !(ds_sweep && st < nkt); }, b);
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int t2 = 2 * (lane & 3);
+  const int row0 = q0 + (tid >> 5) * 16 + (lane >> 2);  // and row0 + 8
+  const float c2 = a.scale * kLog2e;
+  const size_t bh = static_cast<size_t>(b) * a.num_heads + h;
+  // the sample's score cotangent, one f32 per key (zero past n)
+  float* dsv = reinterpret_cast<float*>(smem + S::kVec);
+  if (ds != nullptr) {
+    for (int i = tid; i < S::padded(n); i += wgmma::kConsumers)
+      dsv[i] = i < n ? ds[i] : 0.f;
+    hopper::named_barrier_sync(1, wgmma::kConsumers);
+  }
+  float l2[2], delta[2];
+  bool srow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const bool ok = row < n;
+    // rows past n (zeros from TMA) get p = 0 and are never written
+    l2[i] = ok ? a.lse[bh * n + row] * kLog2e : INFINITY;
+    srow[i] = ds != nullptr && score_row(row, a.mode, a.extra, kv);
+    // delta = rowsum(dO * O): the lane's quarter of the row, then the quad
+    float acc = 0.f;
+    if (ok) {
+      const size_t at = (static_cast<size_t>(b) * n + row) * c +
+                        static_cast<size_t>(h) * D + (lane & 3) * (D / 4);
+      const uint4* op =
+          reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.out) + at);
+      const uint4* dp =
+          reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.dout) + at);
+#pragma unroll
+      for (int v = 0; v < D / 32; ++v) {
+        const uint4 ov = op[v], dv = dp[v];
+        const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+        const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 of = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&ow[w]));
+          const float2 df = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dw[w]));
+          acc = fmaf(of.x, df.x, acc);
+          acc = fmaf(of.y, df.y, acc);
+        }
+      }
+    }
+    delta[i] = wgmma::quad_sum(acc);
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  hopper::mbar_wait(&own, 0);
+  for (int st = 0; st < steps; ++st) {
+    const int s = st % wgmma::kStages;
+    const bool sweep1 = ds_sweep && st < nkt;
+    const int k0 = (st % nkt) * kR;
+    const uint32_t ks = base + S::kStage0 + s * 2 * kT;
+    hopper::mbar_wait(&full[s], (st / wgmma::kStages) & 1);
+    if (sweep1) {
+      // sum_k p_k ds_k for the rows the score reads
+      float sc[32];
+      hopper::wgmma_fence();
+      wgmma::product_nt<D>(sc, base + S::kOwn, ks);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      wgmma::fence_acc(sc);
+      release(empty, s);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + t2 + e;
+          if (key < kv) {
+            const float dsk = dsv[key];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              part[i] = fmaf(
+                  wgmma::ex2(fmaf(sc[4 * j + 2 * i + e], c2, -l2[i])), dsk,
+                  part[i]);
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float sum = wgmma::quad_sum(part[i]);
+        if (srow[i]) delta[i] += sum;
+      }
+      continue;
+    }
+    float sc[32], dp[32];
+    hopper::wgmma_fence();
+    wgmma::product_nt<D>(sc, base + S::kOwn, ks);            // q.k^T
+    wgmma::product_nt<D>(dp, base + S::kOwn + kT, ks + kT);  // dO.v^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    wgmma::fence_acc(sc);
+    wgmma::fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + t2 + e;
+        const bool valid = key < kv;
+        const float dsk = ds != nullptr ? dsv[key] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int at = 4 * j + 2 * i + e;
+          const float p = valid ? wgmma::ex2(fmaf(sc[at], c2, -l2[i])) : 0.f;
+          const float dpv = srow[i] ? dp[at] + dsk : dp[at];
+          sc[at] = p * (dpv - delta[i]);  // dlog
+        }
+      }
+    uint32_t ga[4][4];
+    wgmma::to_a(ga, sc);
+    hopper::wgmma_fence();
+    wgmma::product_nn<D>(dq, ga, ks);  // dq += dlog . k
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    wgmma::fence_acc(dq);
+    release(empty, s);
+  }
+
+  wgmma::store_tile<D>(static_cast<bf16*>(a.dqkv) +
+                           static_cast<size_t>(b) * n * 3 * c +
+                           static_cast<size_t>(h) * D,
+                       3 * static_cast<size_t>(c), dq, q0, n, a.scale);
+  if ((lane & 3) == 0) {
+    float* stats = a.stats + bh * 3 * n;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row < n) stats[2 * n + row] = delta[i];
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void bwd_cols_wgmma(const CUtensorMap* qkv_map,
+                                               const CUtensorMap* do_map,
+                                               const Args& a) {
+  using S = SmemWgmma<D>;
+  constexpr uint32_t kT = S::kTile;
+  constexpr int kR = wgmma::kRows;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[wgmma::kStages], empty[wgmma::kStages], own;
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t base = hopper::smem_addr(smem);
+
+  const int n = a.n;
+  const int kv = a.kv_valid;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int c = a.num_heads * D;
+  const int k0 = blockIdx.x * kR;
+  const int nqt = (n + kR - 1) / kR;
+  const bool live = k0 < kv;  // a key tile wholly past kv_valid: zeros
+  init_barriers(full, empty, &own);
+
+  if (threadIdx.x >= wgmma::kConsumers) {  // the producer warp
+    if (threadIdx.x == wgmma::kConsumers && live)
+      produce<D>(smem, full, empty, &own, qkv_map, c + h * D, qkv_map,
+                 2 * c + h * D, k0, qkv_map, h * D, do_map, h * D, nqt, nqt,
+                 [](int) { return true; }, b);
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int t2 = 2 * (lane & 3);
+  const int key0 = k0 + (tid >> 5) * 16 + (lane >> 2);  // and key0 + 8
+  const float c2 = a.scale * kLog2e;
+  const size_t bh = static_cast<size_t>(b) * a.num_heads + h;
+  const float* ds =
+      a.ds == nullptr ? nullptr : a.ds + static_cast<size_t>(b) * n;
+  // per query: L log2 e (+inf past n, so p = 0 there) and delta
+  float* lv = reinterpret_cast<float*>(smem + S::kVec);
+  float* dlv = lv + S::padded(n);
+  if (live) {
+    const float* lse = a.lse + bh * n;
+    const float* delta = a.stats + bh * 3 * n + 2 * n;
+    for (int i = tid; i < S::padded(n); i += wgmma::kConsumers) {
+      const bool ok = i < n;
+      lv[i] = ok ? lse[i] * kLog2e : INFINITY;
+      dlv[i] = ok ? delta[i] : 0.f;
+    }
+    hopper::named_barrier_sync(1, wgmma::kConsumers);
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (live) {
+    bool kvalid[2];
+    float dsk[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + 8 * i;
+      kvalid[i] = key < kv;
+      dsk[i] = ds != nullptr && kvalid[i] ? ds[key] : 0.f;
+    }
+    hopper::mbar_wait(&own, 0);
+    for (int t = 0; t < nqt; ++t) {
+      const int s = t % wgmma::kStages;
+      const int qb = t * kR;
+      const uint32_t qs = base + S::kStage0 + s * 2 * kT;
+      hopper::mbar_wait(&full[s], (t / wgmma::kStages) & 1);
+      float sc[32], dp[32];
+      hopper::wgmma_fence();
+      wgmma::product_nt<D>(sc, base + S::kOwn, qs);            // k.q^T
+      wgmma::product_nt<D>(dp, base + S::kOwn + kT, qs + kT);  // v.dO^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      wgmma::fence_acc(sc);
+      wgmma::fence_acc(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int q = qb + 8 * j + t2;  // and q + 1
+        const float2 lq = *reinterpret_cast<const float2*>(lv + q);
+        const float2 dq = *reinterpret_cast<const float2*>(dlv + q);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool sr = ds != nullptr && q + e < n &&
+                          score_row(q + e, a.mode, a.extra, kv);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int at = 4 * j + 2 * i + e;
+            const float p = kvalid[i] ? wgmma::ex2(fmaf(
+                                            sc[at], c2, e ? -lq.y : -lq.x))
+                                      : 0.f;
+            const float dpv = sr ? dp[at] + dsk[i] : dp[at];
+            dp[at] = p * (dpv - (e ? dq.y : dq.x));  // dlog^T
+            sc[at] = p;
+          }
+        }
+      }
+      // dv's products run while dlog^T is packed for dk's
+      uint32_t pa[4][4], ga[4][4];
+      wgmma::to_a(pa, sc);
+      hopper::wgmma_fence();
+      wgmma::product_nn<D>(dv, pa, qs + kT);  // dv += p^T . dO
+      wgmma::to_a(ga, dp);
+      hopper::wgmma_fence();
+      wgmma::product_nn<D>(dk, ga, qs);       // dk += dlog^T . q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      wgmma::fence_acc(dv);
+      wgmma::fence_acc(dk);
+      release(empty, s);
+    }
+  }
+
+  bf16* dst = static_cast<bf16*>(a.dqkv) + static_cast<size_t>(b) * n * 3 * c +
+              static_cast<size_t>(h) * D;
+  const size_t stride = 3 * static_cast<size_t>(c);
+  wgmma::store_tile<D>(dst + c, stride, dk, k0, n, a.scale);
+  wgmma::store_tile<D>(dst + 2 * c, stride, dv, k0, n, 1.f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(wgmma::kThreads)
+    qkv_attention_bwd_cols_wgmma_kernel(
+        const __grid_constant__ CUtensorMap qkv_map,
+        const __grid_constant__ CUtensorMap do_map, const Args a) {
+  bwd_cols_wgmma<D>(&qkv_map, &do_map, a);
+}
+
+// At D 32, three CTAs per SM (at most 136 registers, a few bytes of spill)
+// take 15% less time per b32 call at N = 513 than the 146 registers that
+// fit two.  At D 64 the same bound spills 504 bytes and doubles the time,
+// and even a bound of one CTA per SM made ptxas take 180 registers and
+// 0.37 ms where the unbounded kernel takes 168 and 0.24 (b128, N = 257), so
+// only D 32 is bounded (NVIDIA H100 80GB HBM3, 700 W).
+template <>
+__global__ void __launch_bounds__(wgmma::kThreads, 3)
+    qkv_attention_bwd_cols_wgmma_kernel<32>(
+        const __grid_constant__ CUtensorMap qkv_map,
+        const __grid_constant__ CUtensorMap do_map, const Args a) {
+  bwd_cols_wgmma<32>(&qkv_map, &do_map, a);
+}
+
+template <int D>
+cudaError_t launch_wgmma(bool rows, const Args& a, int batch,
+                         cudaStream_t stream) {
+  const int c = a.num_heads * D;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if ((3 * c) % 8 != 0 || !aligned(a.qkv) || !aligned(a.dout) ||
+      !aligned(a.out) || !aligned(a.dqkv))
+    return cudaErrorInvalidValue;  // TMA and 16-byte loads
+  CUtensorMap qkv_map, do_map;
+  cudaError_t err = wgmma::head_tile_map<D>(&qkv_map, a.qkv, batch, a.n, 3 * c);
+  if (err == cudaSuccess)
+    err = wgmma::head_tile_map<D>(&do_map, a.dout, batch, a.n, c);
+  if (err != cudaSuccess) return err;
+  auto kernel = rows ? qkv_attention_bwd_rows_wgmma_kernel<D>
+                     : qkv_attention_bwd_cols_wgmma_kernel<D>;
+  const size_t smem = SmemWgmma<D>::bytes(
+      a.n, rows ? (a.ds != nullptr ? 1 : 0) : 2);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + wgmma::kRows - 1) / wgmma::kRows, a.num_heads, batch);
+  kernel<<<grid, wgmma::kThreads, smem, stream>>>(qkv_map, do_map, a);
   return cudaGetLastError();
 }
 
@@ -813,25 +1287,28 @@ cudaError_t launch(bool rows, const Args& a, int batch, cudaStream_t stream) {
 }
 
 int dispatch(bool rows, const void* qkv, const void* dout, const void* ds,
-             void* dqkv, void* stats, int batch, int n, int num_heads,
-             int head_dim, int dtype, int mode, int extra, int kv_valid,
-             float scale, void* stream) {
+             void* dqkv, void* stats, const void* out, const void* lse,
+             int batch, int n, int num_heads, int head_dim, int dtype,
+             int mode, int extra, int kv_valid, float scale, void* stream) {
+  // the wgmma bodies read the forward's output and L; the others neither
+  const bool saved = wgmma::takes(dtype, head_dim);
   if (batch < 1 || batch > 65535 || n < 1 || num_heads < 1 ||
       num_heads > 65535 || mode < kModeNone || mode > kModeCls || extra < 0 ||
       kv_valid <= extra || kv_valid > n || (mode != kModeNone) != (ds != nullptr) ||
-      qkv == nullptr || dout == nullptr || dqkv == nullptr || stats == nullptr) {
+      qkv == nullptr || dout == nullptr || dqkv == nullptr || stats == nullptr ||
+      (out != nullptr) != saved || (lse != nullptr) != saved) {
     return cudaErrorInvalidValue;
   }
   const Args a{qkv, dout, static_cast<const float*>(ds), dqkv,
-               static_cast<float*>(stats), n, num_heads, mode, extra,
-               kv_valid, scale};
+               static_cast<float*>(stats), out, static_cast<const float*>(lse),
+               n, num_heads, mode, extra, kv_valid, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 32) return launch<float, 32>(rows, a, batch, s);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(rows, a, batch, s);
   if (dtype == 0 && head_dim == 80) return launch<float, 80>(rows, a, batch, s);
-  if (dtype == 1 && head_dim == 32) return launch_bf16<32>(rows, a, batch, s);
-  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(rows, a, batch, s);
-  if (dtype == 1 && head_dim == 80) return launch_bf16<80>(rows, a, batch, s);
+  if (dtype == 1 && head_dim == 32) return launch_wgmma<32>(rows, a, batch, s);
+  if (dtype == 1 && head_dim == 64) return launch_wgmma<64>(rows, a, batch, s);
+  if (dtype == 1 && head_dim == 80) return launch_mma<80>(rows, a, batch, s);
   return cudaErrorInvalidValue;
 }
 
@@ -840,22 +1317,30 @@ int dispatch(bool rows, const void* qkv, const void* dout, const void* ds,
 // dtype: 0 = float32, 1 = bfloat16.  mode: 0 = none (ds == nullptr),
 // 1 = patch_mean, 2 = cls (ds: (batch, n) f32, pre-scaled, zero on the
 // extras).  dout: (batch, n, C) contiguous; dqkv: (batch, n, 3C) in qkv's
-// dtype; stats: (batch, num_heads, 3, n) f32 scratch.  kv_valid in
-// (extra, n].  The rows kernel writes dq and stats; the cols kernel, launched
-// after it on the same stream, reads stats and writes dk and dv.  Each
-// returns the CUDA error of its launch (0 on success).
+// dtype; stats: (batch, num_heads, 3, n) f32 scratch.  out: the forward's
+// (batch, n, C) output and lse: its (batch, num_heads, n) f32 row
+// log-sum-exp, both given exactly for bf16 at head_dim 32 and 64 (that
+// body also needs 16-byte aligned qkv, dout, out and dqkv and 3C a
+// multiple of 8), else both null.  kv_valid in (extra, n].  The rows kernel
+// writes dq and stats; the cols kernel, launched after it on the same
+// stream, reads stats and writes dk and dv.  Each returns the CUDA error of
+// its launch (0 on success).
 extern "C" int tpat_qkv_attention_bwd_rows(
     const void* qkv, const void* dout, const void* ds, void* dqkv, void* stats,
-    int batch, int n, int num_heads, int head_dim, int dtype, int mode,
-    int extra, int kv_valid, float scale, void* stream) {
-  return dispatch(true, qkv, dout, ds, dqkv, stats, batch, n, num_heads,
-                  head_dim, dtype, mode, extra, kv_valid, scale, stream);
+    const void* out, const void* lse, int batch, int n, int num_heads,
+    int head_dim, int dtype, int mode, int extra, int kv_valid, float scale,
+    void* stream) {
+  return dispatch(true, qkv, dout, ds, dqkv, stats, out, lse, batch, n,
+                  num_heads, head_dim, dtype, mode, extra, kv_valid, scale,
+                  stream);
 }
 
 extern "C" int tpat_qkv_attention_bwd_cols(
     const void* qkv, const void* dout, const void* ds, void* dqkv, void* stats,
-    int batch, int n, int num_heads, int head_dim, int dtype, int mode,
-    int extra, int kv_valid, float scale, void* stream) {
-  return dispatch(false, qkv, dout, ds, dqkv, stats, batch, n, num_heads,
-                  head_dim, dtype, mode, extra, kv_valid, scale, stream);
+    const void* out, const void* lse, int batch, int n, int num_heads,
+    int head_dim, int dtype, int mode, int extra, int kv_valid, float scale,
+    void* stream) {
+  return dispatch(false, qkv, dout, ds, dqkv, stats, out, lse, batch, n,
+                  num_heads, head_dim, dtype, mode, extra, kv_valid, scale,
+                  stream);
 }

@@ -16,9 +16,16 @@ residual) and recompute p in the backward:
 
 - on a CUDA tensor the forward launches ``csrc/qkv_attention.cu`` and the
   backward ``csrc/qkv_attention_bwd.cu`` (both built with nvcc at first use),
-  or raise: bf16 runs their tensor-core kernels (mma.sync, cp.async), f32
-  their exact FMA kernels, and a tensor that is not contiguous or does not
-  start on a 16-byte boundary (``aligned16``) is refused;
+  or raise: bf16 at head_dim 32 and 64 runs their wgmma and TMA kernels,
+  bf16 at head_dim 80 their mma.sync kernels, f32 their exact FMA kernels,
+  and a tensor that is not contiguous or does not start on a 16-byte
+  boundary (``aligned16``), or whose row of 3C bf16 values is not a multiple
+  of 16 bytes (TMA), is refused;
+- where the backward kernels read the forward's row log-sum-exp L (bf16 at
+  head_dim 32 and 64, ``reads_lse``), a call recorded for autograd
+  (grad enabled and ``qkv.requires_grad``) has the forward kernel write L
+  as f32 (B, H, N) and saves the output and L beside qkv; the backward then
+  rebuilds p from L and takes delta from the output (no online statistics);
 - on a CPU tensor they run the plain PyTorch versions beside them
   (``fused_qkv_attention_plain``, ``fused_qkv_attention_prefix_plain``,
   ``fused_qkv_attention_bwd_plain``).  That is the only case the plain
@@ -235,12 +242,14 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("qkv_attention")
     fn = lib.tpat_qkv_attention_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     lib.tpat_qkv_attention_qtile.argtypes = []
     lib.tpat_qkv_attention_qtile.restype = ctypes.c_int
+    lib.tpat_qkv_attention_reads_lse.argtypes = [ctypes.c_int] * 2
+    lib.tpat_qkv_attention_reads_lse.restype = ctypes.c_int
     return lib
 
 
@@ -249,16 +258,25 @@ def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("qkv_attention_bwd")
     for fn in (lib.tpat_qkv_attention_bwd_rows, lib.tpat_qkv_attention_bwd_cols):
         fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
 
 
+def reads_lse(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the kernels for (dtype, head_dim) pass the row log-sum-exp
+    and the output from the forward to the backward (the wgmma bodies), as
+    the forward library states it; a CUDA-side question, since it loads
+    that library."""
+    return bool(_library().tpat_qkv_attention_reads_lse(_DTYPES[dtype],
+                                                        head_dim))
+
+
 def aligned16(t: torch.Tensor) -> bool:
     """Whether ``t``'s data starts on a 16-byte boundary, as the bf16
-    kernels' cp.async copies and ldmatrix loads (16 bytes a lane) need."""
+    kernels' TMA and cp.async copies and 16-byte loads need."""
     return t.data_ptr() % 16 == 0
 
 
@@ -276,16 +294,28 @@ def _check_device(qkv: torch.Tensor, num_heads: int):
         raise ValueError("qkv must be contiguous")
     if not aligned16(qkv):
         raise ValueError("qkv must start on a 16-byte boundary")
+    if reads_lse(qkv.dtype, d) and (c3 * qkv.element_size()) % 16:
+        raise ValueError(
+            f"a qkv row of {c3} bf16 values is not a multiple of 16 bytes, "
+            "as the TMA tiles need"
+        )
 
 
-def _forward_kernel(qkv, num_heads, mode, extra, kv_valid):
-    """Launch the forward kernel (plain form when kv_valid is None)."""
+def _forward_kernel(qkv, num_heads, mode, extra, kv_valid, want_lse=False):
+    """Launch the forward kernel (plain form when kv_valid is None); returns
+    (out, scores, lse).  ``want_lse`` asks the kernel for the f32 (B, H, N)
+    row log-sum-exp, which only the bodies that pass it to the backward
+    write (``reads_lse``); lse is None otherwise."""
     global launches, prefix_launches
     _check_device(qkv, num_heads)
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    lse = None
+    if want_lse and reads_lse(qkv.dtype, d):
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32,
+                          device=qkv.device)
     lib = _library()
     colsum = None
     if mode == "patch_mean":
@@ -301,6 +331,7 @@ def _forward_kernel(qkv, num_heads, mode, extra, kv_valid):
         err = lib.tpat_qkv_attention_fwd(
             qkv.data_ptr(), out.data_ptr(),
             None if colsum is None else colsum.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, n, num_heads, d, _DTYPES[qkv.dtype], _MODES[mode], extra,
             n if kv_valid is None else kv_valid, d**-0.5,
             torch.cuda.current_stream().cuda_stream,
@@ -312,14 +343,18 @@ def _forward_kernel(qkv, num_heads, mode, extra, kv_valid):
     else:
         prefix_launches += 1
     if colsum is None:
-        return out, None
-    return out, reduce_scores(colsum.sum(dim=2), mode, n, extra, kv_valid)
+        return out, None, lse
+    return (out, reduce_scores(colsum.sum(dim=2), mode, n, extra, kv_valid),
+            lse)
 
 
-def _bwd_launch_args(qkv, d_out, d_scores, num_heads, mode, extra, kv_valid):
+def _bwd_launch_args(qkv, d_out, d_scores, num_heads, mode, extra, kv_valid,
+                     out=None, lse=None):
     """Check the inputs and allocate the outputs of the backward kernels;
     returns (the C functions' argument tuple, dqkv, the tensors the
-    arguments point into)."""
+    arguments point into).  Where the kernels read the forward's output and
+    row log-sum-exp (``reads_lse``) and ``out``/``lse`` are not given, the
+    forward kernel runs first to make them."""
     _check_device(qkv, num_heads)
     b, n, c3 = qkv.shape
     d = c3 // 3 // num_heads
@@ -334,6 +369,18 @@ def _bwd_launch_args(qkv, d_out, d_scores, num_heads, mode, extra, kv_valid):
     if not aligned16(d_out):
         raise ValueError("d_out must start on a 16-byte boundary")
     ds = _score_cotangent(d_scores, mode, num_heads, n, extra, kv_valid)
+    if not reads_lse(qkv.dtype, d):
+        out = lse = None
+    elif out is None or lse is None:
+        out, _, lse = _forward_kernel(qkv, num_heads, None, extra, kv_valid,
+                                      want_lse=True)
+    elif (out.shape != d_out.shape or out.dtype != qkv.dtype
+          or lse.shape != (b, num_heads, n) or lse.dtype != torch.float32
+          or not (out.is_contiguous() and lse.is_contiguous())
+          or not aligned16(out)):
+        raise ValueError("out and lse must be the forward's contiguous "
+                         f"{tuple(d_out.shape)} output and ({b}, "
+                         f"{num_heads}, {n}) f32 row log-sum-exp")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((b, num_heads, 3, n), dtype=torch.float32,
                         device=qkv.device)
@@ -343,19 +390,22 @@ def _bwd_launch_args(qkv, d_out, d_scores, num_heads, mode, extra, kv_valid):
         qkv.data_ptr(), d_out.data_ptr(),
         None if ds is None else ds.data_ptr(),
         dqkv.data_ptr(), stats.data_ptr(),
+        None if out is None else out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, n, num_heads, d, _DTYPES[qkv.dtype],
         _MODES[mode if ds is not None else None], extra,
         n if kv_valid is None else kv_valid, d**-0.5, stream,
     )
-    return args, dqkv, (qkv, d_out, ds, stats)
+    return args, dqkv, (qkv, d_out, ds, stats, out, lse)
 
 
-def _backward_kernels(qkv, d_out, d_scores, num_heads, mode, extra, kv_valid):
+def _backward_kernels(qkv, d_out, d_scores, num_heads, mode, extra, kv_valid,
+                      out=None, lse=None):
     """Launch the two backward kernels: rows (dq and the softmax
     statistics), then cols (dk and dv)."""
     global bwd_rows_launches, bwd_cols_launches
     args, dqkv, _keep = _bwd_launch_args(
-        qkv, d_out, d_scores, num_heads, mode, extra, kv_valid
+        qkv, d_out, d_scores, num_heads, mode, extra, kv_valid, out, lse
     )
     lib = _bwd_library()
     with torch.cuda.device(qkv.device):
@@ -382,48 +432,70 @@ def fused_qkv_attention_bwd(
     mode: Optional[str],
     num_extra_tokens: int,
     kv_valid: Optional[int] = None,
+    *,
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gradient of both public functions with respect to the packed qkv:
     the backward kernels on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor.  ``out`` and ``lse`` are the forward's output and row
+    log-sum-exp, which the kernels that read them (``reads_lse``) otherwise
+    make by running the forward kernel first; the plain version ignores
+    them."""
     _check(qkv, num_heads, mode, num_extra_tokens, kv_valid)
     if qkv.device.type == "cpu":
         return fused_qkv_attention_bwd_plain(
             qkv, d_out, d_scores, num_heads, mode, num_extra_tokens, kv_valid
         )
     return _backward_kernels(
-        qkv, d_out, d_scores, num_heads, mode, num_extra_tokens, kv_valid
+        qkv, d_out, d_scores, num_heads, mode, num_extra_tokens, kv_valid,
+        out, lse
     )
 
 
 class _FusedQKVAttention(torch.autograd.Function):
-    """Forward kernel (or plain version on the CPU), saving qkv; the backward
-    recomputes p, as the JAX custom VJPs do."""
+    """Forward kernel (or plain version on the CPU), saving qkv and, where
+    the backward kernels read them, the output and the row log-sum-exp; the
+    backward recomputes p, as the JAX custom VJPs do."""
 
     @staticmethod
-    def forward(ctx, qkv, kv_valid, num_heads, mode, extra):
+    def forward(ctx, qkv, kv_valid, num_heads, mode, extra, record):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(qkv)
         ctx.args = (kv_valid, num_heads, mode, extra)
         if qkv.device.type == "cpu":
+            ctx.save_for_backward(qkv)
             if kv_valid is None:
                 return fused_qkv_attention_plain(qkv, num_heads, mode, extra)
             return fused_qkv_attention_prefix_plain(
                 qkv, kv_valid, num_heads, mode, extra
             )
-        return _forward_kernel(qkv, num_heads, mode, extra, kv_valid)
+        out, scores, lse = _forward_kernel(
+            qkv, num_heads, mode, extra, kv_valid, want_lse=record
+        )
+        if lse is None:
+            ctx.save_for_backward(qkv)
+        else:
+            ctx.save_for_backward(qkv, out, lse)
+        return out, scores
 
     @staticmethod
     def backward(ctx, d_out, d_scores):
-        (qkv,) = ctx.saved_tensors
+        qkv, *saved = ctx.saved_tensors
+        out, lse = saved if saved else (None, None)
         kv_valid, num_heads, mode, extra = ctx.args
         if d_out is None:
             b, n, c3 = qkv.shape
             d_out = qkv.new_zeros((b, n, c3 // 3))
         d_qkv = fused_qkv_attention_bwd(
-            qkv, d_out, d_scores, num_heads, mode, extra, kv_valid
+            qkv, d_out, d_scores, num_heads, mode, extra, kv_valid,
+            out=out, lse=lse,
         )
-        return d_qkv, None, None, None, None
+        return d_qkv, None, None, None, None, None
+
+
+def _recorded(qkv: torch.Tensor) -> bool:
+    """Whether autograd records this call (the forward then writes L)."""
+    return torch.is_grad_enabled() and qkv.requires_grad
 
 
 def fused_qkv_attention(
@@ -434,7 +506,9 @@ def fused_qkv_attention(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Packed-qkv fused attention.  See the module docstring."""
     _check(qkv, num_heads, mode, num_extra_tokens)
-    return _FusedQKVAttention.apply(qkv, None, num_heads, mode, num_extra_tokens)
+    return _FusedQKVAttention.apply(
+        qkv, None, num_heads, mode, num_extra_tokens, _recorded(qkv)
+    )
 
 
 def fused_qkv_attention_prefix(
@@ -448,5 +522,5 @@ def fused_qkv_attention_prefix(
     keys.  See the module docstring."""
     _check(qkv, num_heads, mode, num_extra_tokens, kv_valid)
     return _FusedQKVAttention.apply(
-        qkv, kv_valid, num_heads, mode, num_extra_tokens
+        qkv, kv_valid, num_heads, mode, num_extra_tokens, _recorded(qkv)
     )
