@@ -504,12 +504,20 @@ def probe_builds() -> tuple:
     from tpat_tpu_torch.probes import probe_attn_grouping as p2
     from tpat_tpu_torch.probes import probe_attn_softmax as p1
 
-    design = ("bf16: B1's kernel, a warp per 16 query rows, mma.sync "
-              "m16n8k16 (ldmatrix), cp.async double-buffered 64-key tiles, "
-              "the softmax on the accumulator fragments, two sweeps over the "
-              "keys (one for mmonly), the next head's first tiles copied "
-              "during the last tile of the one before; f32 keeps B1's FMA "
-              "tiles")
+    design = ("bf16: B1's wgmma/TMA body at D 64: a producer warp issuing "
+              "TMA loads of one head's 64-row tiles (128-byte swizzle) into "
+              "a ring of two K/V stages under full/empty mbarriers; s = "
+              "q.k^T as wgmma m64n64k16 (Q, K from shared memory), p.v as "
+              "m64n64k16 (p from registers, V MN-major), ex2.approx; "
+              "noscore/exp2 B1's one sweep (online max and sum, O / l at the "
+              "end), full B1's two (K alone for m and l, then the "
+              "normalised p, its column sums and round(p).v), nomax and "
+              "mmonly one sweep without a max (mmonly without exps), noexp "
+              "two (the final max, then s scale - m); 64 query rows: one "
+              "consumer warpgroup, 128: two sharing each stage, 32: the m64 "
+              "products on a 64-row Q box, half of it stored; 2 and 4 heads "
+              "per CTA one after the other, one stage counter, the next "
+              "head's Q in a second buffer; f32 keeps B1's FMA tiles")
     kernel = "attn_probe_bf16_kernelILi{}ELi{}ELi{}E"
     variants = {v: (kernel.format(64, 1, i),) for i, v in enumerate(p1.VARIANTS)}
     variants.update({f"f32 {v}": (f"attn_probe_f32_kernelILi{i}E",)
@@ -2207,7 +2215,7 @@ def _compare_variant(p1, qkv, variant) -> tuple:
     BF16_TOL for the normalised variants, within UNNORM_F32_REL or
     GRAD_BF16_REL of the largest |entry| for noexp and mmonly; colsum within
     the score tolerance for 'full' and exactly zero otherwise.  Returns (the
-    worst abs err, the kernel's out)."""
+    worst abs err, the kernel's out, its colsum)."""
     what = f"P1 {variant} B={qkv.shape[0]} N={qkv.shape[1]} {qkv.dtype}"
     with torch.no_grad():
         out, colsum = p1.variant_attention(qkv, variant)
@@ -2224,7 +2232,7 @@ def _compare_variant(p1, qkv, variant) -> tuple:
         err = max(err, _close(colsum, pcol, SCORE_ATOL, SCORE_RTOL))
     elif colsum.shape != pcol.shape or colsum.any():
         raise AssertionError(f"{what}: colsum is not zero")
-    return err, out
+    return err, out, colsum
 
 
 def sass_check(name: str, kernel: str, needles=("HGMMA", "UTMALDG")):
@@ -2326,11 +2334,11 @@ def probes_vs_plain() -> tuple:
     B=2 (N 33 and 257) and B=128 (N 257 and 181), bf16; P3 vs plain at
     ``P3_CASES``, each bf16 case launched three more times for the same
     bits, then with w = I (``ln_matmul_identity``).  In bf16 P1/P2 run
-    the mma.sync body B1 had before its wgmma redesign, so the nine P2
-    geometries must give P1 'noscore''s bits at each input; at B=128 P1
-    'full' and 'noscore' are held to B1's out (``fused_qkv_attention``
-    with patch_mean scores and without, now the wgmma body) within the
-    bf16 kernel-vs-plain limit.  Then each at the probe's shapes (B=128,
+    B1's wgmma body, so the nine P2 geometries must give P1 'noscore''s
+    bits at each input, and at B=128 P1 'full' and 'noscore' B1's out bits
+    (``fused_qkv_attention`` with patch_mean scores at extra 1 and
+    without), 'full''s column sums B1's scores once reduced as B1's
+    wrapper reduces them.  Then each at the probe's shapes (B=128,
     N=257; P3's M, K, N), kernel and plain timed in turns beside the bound
     and the library call.  Returns ({probe: worst abs err}, {probe: times}, P3's w = I
     record)."""
@@ -2348,9 +2356,10 @@ def probes_vs_plain() -> tuple:
                      (128, 181, bf16)):
         qkv = torch.randn(b, n, 3 * p1.C, device="cuda", generator=gen).to(dt)
         inputs[b, n, dt] = qkv
-        outs = {}
+        outs, cols = {}, {}
         for variant in p1.VARIANTS:
-            err, outs[variant] = _compare_variant(p1, qkv, variant)
+            err, outs[variant], cols[variant] = _compare_variant(p1, qkv,
+                                                                 variant)
             worst["P1"] = max(worst["P1"], err)
         if dt == bf16:
             what = f"B={b} N={n}"
@@ -2365,17 +2374,14 @@ def probes_vs_plain() -> tuple:
                                    f"P2 {rows} rows, {heads} heads vs P1 "
                                    f"noscore, {what}")
                 if b == 128:
-                    # P1 keeps the mma.sync body B1 had before its wgmma
-                    # redesign; B1's wgmma body rounds p~ before it
-                    # normalises, so the two meet within the bf16
-                    # kernel-vs-plain limit, not bit for bit
-                    for variant, mode in (("full", "patch_mean"),
-                                          ("noscore", None)):
-                        b1, _ = qa.fused_qkv_attention(qkv, p1.H, mode, 1)
-                        err = _close(outs[variant], b1, BF16_TOL, BF16_TOL)
-                        log(f"P1 {variant} vs B1 ({mode}), {what}: max abs "
-                            f"diff {err:.3g} (limit {BF16_TOL} + {BF16_TOL} "
-                            "x |B1|)")
+                    for variant, mode in (("noscore", None),
+                                          ("full", "patch_mean")):
+                        b1, scores = qa.fused_qkv_attention(qkv, p1.H, mode, 1)
+                        _same_bits(outs[variant], b1,
+                                   f"P1 {variant} vs B1 ({mode}), {what}")
+                    _same_bits(qa.reduce_scores(cols["full"][:, :, 0],
+                                                "patch_mean", n, 1), scores,
+                               f"P1 full's column sums vs B1's scores, {what}")
     for m, k, n, dt in P3_CASES:
         x, g, b, w = p3.inputs(SEED + 13, m, k, n, dt)
         with torch.no_grad():
@@ -2393,7 +2399,8 @@ def probes_vs_plain() -> tuple:
         "over four launches): worst abs err " + ", ".join(
             f"{k} {v:.3g}" for k, v in worst.items()) + "; the same bits: "
         "P2's nine geometries and P1 noscore at each of 4 bf16 inputs, P1 "
-        "full and noscore and B1 at B=128, N 257 and 181")
+        "full and noscore and B1 (out; full's scores) at B=128, N 257 and "
+        "181")
 
     times = {}
     qkv = inputs[128, 257, bf16]
@@ -4855,6 +4862,9 @@ def run_phases(tmp):
         [c for walk in (serve_walk, *ln_walks.values()) for c in walk])
     probe_err, probe_times, p3_identity = probes_vs_plain()
     p3_sass = sass_check("ln_matmul", "ln_matmul_bf16_tc_kernel")
+    # a P1 kernel ('full', 64 rows, 1 head) and a P2 one (128 rows, 4 heads)
+    p1_sass = sass_check("attn_probe", "attn_probe_bf16_kernelILi64ELi1ELi0E")
+    p2_sass = sass_check("attn_probe", "attn_probe_bf16_kernelILi128ELi4ELi1E")
     probe_launches = probe_mains()
     finetune_launches, corpus, ft_loader = finetune_path(tmp, walks,
                                                          train_step_ms, smi)
@@ -5059,11 +5069,11 @@ def run_phases(tmp):
         probe_entry("attn_probe_variants", "attn_probe.cu",
                     "scripts/probe_attn_softmax.py:42", "P1 full", "P1",
                     f"{at}, variant full", variants=rows("P1 "),
-                    **variants_build),
+                    sass=p1_sass, **variants_build),
         probe_entry("attn_probe_grouped", "attn_probe.cu",
                     "scripts/probe_attn_grouping.py:32", "P2 64 rows, 1 heads",
                     "P2", f"{at}, 64 query rows and 1 head per CTA",
-                    geometries=rows("P2 "), **grouped_build),
+                    geometries=rows("P2 "), sass=p2_sass, **grouped_build),
         probe_entry("ln_matmul", "ln_matmul.cu",
                     "scripts/probe_ln_matmul.py:41", "P3", "P3",
                     "one call at M=32896, K=768, N=2304, bf16",

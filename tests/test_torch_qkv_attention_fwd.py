@@ -40,13 +40,27 @@ def bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (R, D) . b (C, D)^T as the kernels take it: exact products of bf16
-    values (exact in f32), summed in f32 over D in one fixed order, so the
-    transposed product (b, a) gives the same bits."""
-    acc = torch.zeros(a.shape[0], b.shape[0])
-    for d in range(a.shape[1]):
-        acc = acc + a[:, d, None] * b[None, :, d]
+    """a (..., R, D) . b (..., C, D)^T as the kernels take it: exact
+    products of bf16 values (exact in f32), summed in f32 over D in one
+    fixed order, so the transposed product (b, a) gives the same bits, and
+    an entry's bits do not depend on the other rows or heads taken with
+    it."""
+    acc = torch.zeros(a.shape[:-1] + (b.shape[-2],))
+    for d in range(a.shape[-1]):
+        acc = acc + a[..., :, d, None] * b[..., None, :, d]
     return acc
+
+
+def key_tiles(n: int, kv: int) -> list:
+    """The 64-key tiles the kernels walk: those holding a key below
+    kv_valid, the last one cut at N."""
+    return [slice(k0, min(k0 + TILE, n)) for k0 in range(0, kv, TILE)]
+
+
+def times_v(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """round(p) (..., R, K) . v (..., K, D): exact products of bf16 values
+    summed in f32 over the keys in one fixed order (``products``)."""
+    return products(bf16(p), v.transpose(-1, -2))
 
 
 def score_rows(n: int, mode, extra: int, kv: int) -> torch.Tensor:
@@ -66,38 +80,42 @@ def heads(qkv: torch.Tensor, h: int):
 
 
 def forward_head(q, k, v, mode, extra, kv):
-    """One CTA row block after another for one (sample, head): (out in f32
-    before its rounding, L, the column sums of the normalised p over the
-    score rows or None)."""
-    n, d = q.shape
+    """One CTA row block after another for every (sample, head) at once,
+    query rows q (..., R, D) (the heads' rows from row 0 when they emit
+    scores) against all N keys k, v (..., N, D): (out in f32 before its
+    rounding, L, the column sums (..., N) of the normalised p over the score
+    rows or None)."""
+    nq, d = q.shape[-2:]
+    n = k.shape[-2]
     c = d ** -0.5 * LOG2E
     s = products(q, k)
-    s[:, kv:] = -math.inf
-    tiles = [slice(k0, min(k0 + TILE, n)) for k0 in range(0, kv, TILE)]
-    m = torch.full((n,), -math.inf)
-    l = torch.zeros(n)
-    o = torch.zeros(n, d)
+    s[..., kv:] = -math.inf
+    tiles = key_tiles(n, kv)
+    m = torch.full(s.shape[:-1], -math.inf)
+    l = torch.zeros(s.shape[:-1])
+    o = torch.zeros(s.shape[:-1] + (d,))
     for keys in tiles:
-        st = s[:, keys]
-        m_new = torch.maximum(m, st.amax(dim=1) * c)
+        st = s[..., keys]
+        m_new = torch.maximum(m, st.amax(dim=-1) * c)
         alpha = torch.exp2(m - m_new)
-        p = torch.exp2(st * c - m_new[:, None])
-        l = l * alpha + p.sum(dim=1)
+        p = torch.exp2(st * c - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
         if mode is None:
-            o = o * alpha[:, None] + bf16(p) @ v[keys]
+            o = o * alpha[..., None] + times_v(p, v[..., keys, :])
         m = m_new
     lse = (m + torch.log2(l)) * LN2
     if mode is None:
-        return o * (1.0 / l)[:, None], lse, None
+        return o * (1.0 / l)[..., None], lse, None
     inv = 1.0 / l
-    rows = score_rows(n, mode, extra, kv).float()
-    colsum = torch.zeros(n)
+    rows = score_rows(nq, mode, extra, kv).float()[:, None]
+    colsum = torch.zeros(s.shape[:-2] + (n,))
     for keys in tiles:
-        p = torch.exp2(s[:, keys] * c - m[:, None]) * inv[:, None]
+        p = torch.exp2(s[..., keys] * c - m[..., None]) * inv[..., None]
         # the partial sums of each 64-row query tile, then their sum
-        colsum[keys] = sum((p[r0:r0 + TILE] * rows[r0:r0 + TILE, None]).sum(0)
-                           for r0 in range(0, n, TILE))
-        o = o + bf16(p) @ v[keys]
+        colsum[..., keys] = sum(
+            (p[..., r0:r0 + TILE, :] * rows[r0:r0 + TILE]).sum(-2)
+            for r0 in range(0, nq, TILE))
+        o = o + times_v(p, v[..., keys, :])
     return o, lse, colsum
 
 
@@ -105,18 +123,9 @@ def forward_model(qkv: torch.Tensor, h: int, mode, extra: int, kv=None):
     """The kernel's forward on bf16 qkv (B, N, 3C): (out bf16 (B, N, C),
     scores or None, L (B, H, N))."""
     b, n, c3 = qkv.shape
-    kv_valid = n if kv is None else kv
     q, k, v = heads(qkv, h)
-    out = torch.zeros(b, h, n, c3 // 3 // h)
-    lse = torch.zeros(b, h, n)
-    colsum = torch.zeros(b, h, n)
-    for i in range(b):
-        for j in range(h):
-            o, l_row, cs = forward_head(q[i, j], k[i, j], v[i, j], mode, extra,
-                                        kv_valid)
-            out[i, j], lse[i, j] = o, l_row
-            if cs is not None:
-                colsum[i, j] = cs
+    out, lse, colsum = forward_head(q, k, v, mode, extra,
+                                    n if kv is None else kv)
     out = out.transpose(1, 2).reshape(b, n, c3 // 3).to(torch.bfloat16)
     return out, qa.reduce_scores(colsum, mode, n, extra, kv), lse
 

@@ -1,5 +1,6 @@
 // Hopper pieces of the bf16 fused-attention kernels at head_dim 32 and 64
-// (qkv_attention.cu, B1/B2, and qkv_attention_bwd.cu, B3): 3-D TMA loads of
+// (qkv_attention.cu, B1/B2, qkv_attention_bwd.cu, B3, and attn_probe.cu,
+// the probes P1/P2 on B1's body at head_dim 64): 3-D TMA loads of
 // one head's 64-row tiles straight out of the packed (B, N, 3C) projection
 // output, the matching wgmma matrix descriptors, and wgmma m64n64k16 (both
 // operands from shared memory) and m64nDk16 (A from registers).  The

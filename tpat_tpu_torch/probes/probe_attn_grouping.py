@@ -4,19 +4,22 @@
 The TPU probe swept the batch group g of a program and its lane width (128
 or 256 lanes: 2 or 4 heads per program), skipping what did not fit in VMEM.
 On Hopper a CTA's geometry is its query-tile height and the heads it runs
-one after the other, so this probe sweeps those: ``ROWS`` (32, 64 or 128
-query rows per CTA: 2, 4 or 8 warps of 16 rows) by ``HEADS`` (1, 2 or 4
-heads per CTA, the copy of each next head's first tiles overlapping the
-last tile of the one before), skipping a height whose CTA does not fit in
-the card's shared memory.  Taller tiles read each K and V tile from L2 for
+one after the other, so this probe sweeps those on B1's wgmma/TMA body:
+``ROWS`` (64: B1's CTA, one consumer warpgroup; 128: two consumer
+warpgroups sharing each K/V stage the producer warp loads; 32: the m64
+products on a 64-row Q box of which the CTA stores half, the cost of a
+half-filled tile) by ``HEADS`` (1, 2 or 4 heads per CTA, one stage counter
+across them, the next head's Q tile and first K/V tiles loaded while the
+consumers finish the one before), skipping a height whose CTA does not fit
+in the card's shared memory.  Taller tiles read each K and V tile once for
 more query rows; more heads make fewer, longer CTAs.
 
 ``grouped_attention(qkv, rows, heads)`` is softmax attention without scores
-(P1's bf16 'noscore' body in ``csrc/attn_probe.cu``: B1's tensor-core
-kernel) from packed qkv (B, N, 3 * 768) to out (B, N, 768); the output does
-not depend on the geometry, bit for bit.  On a CUDA tensor it launches the kernel (or raises); on a CPU
-tensor it runs ``grouped_attention_plain``.  ``launches`` counts kernel
-launches.
+(P1's bf16 'noscore' body in ``csrc/attn_probe.cu``: B1's one-sweep kernel)
+from packed qkv (B, N, 3 * 768) to out (B, N, 768); the output does not
+depend on the geometry, bit for bit.  On a CUDA tensor it launches the
+kernel (or raises); on a CPU tensor it runs ``grouped_attention_plain``.
+``launches`` counts kernel launches.
 
 On the card:
 
@@ -55,8 +58,9 @@ def grouped_attention_plain(qkv: torch.Tensor) -> torch.Tensor:
 
 
 def fits(rows: int) -> bool:
-    """Whether a CTA with ``rows`` query rows fits in the current card's
-    shared memory (the TPU probe's VMEM skip, ``:95-99``)."""
+    """Whether a CTA with ``rows`` query rows, at the most shared memory a
+    height takes (two Q buffers), fits in the current card's (the TPU
+    probe's VMEM skip, ``:95-99``)."""
     need = p1.library().tpat_attn_probe_smem(rows)
     return 0 < need <= torch.cuda.get_device_properties(
         torch.cuda.current_device()).shared_memory_per_block_optin

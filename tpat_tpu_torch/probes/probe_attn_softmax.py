@@ -4,18 +4,22 @@
 Ablation variants of the attention forward at the headline widths (ViT-B,
 b128 bf16), run by ``csrc/attn_probe.cu`` on the B1 kernel's body and
 geometry (64-row query tiles, one head per CTA).  In bf16 that is B1's
-tensor-core kernel (``mma.sync`` products, the softmax on the accumulator
-fragments, two sweeps over the keys), so each variant removes one part of
-the kernel the model runs; 'full' and 'noscore' give B1's output bits.  In
-f32 it is B1's exact FMA kernel.
+Hopper kernel (a producer warp's TMA loads into a ring of two K/V stages,
+``wgmma`` products, exp2 on the special-function unit), so each variant
+removes one part of the kernel the model runs; 'full' and 'noscore' give
+B1's output bits.  In f32 it is B1's exact FMA kernel.
 
-  full        the shipped math (exp softmax, unnormalised column sums on)
-  noscore     no column sums
-  exp2        log2(e) folded into the logit scale, exp2 instead of exp
-  noexp       p = logits - rowmax (no transcendental; WRONG math, cost bound)
-  nomax       no row max (UNSAFE math, bounds the max's cost)
-  mmonly      p = logits, no softmax at all (the product floor; one sweep
-              over the keys instead of two)
+  full        the shipped math with scores: B1's two sweeps (K alone for
+              the row max and sum, then the normalised p, its column sums
+              and round(p).v)
+  noscore     B1 without scores: ONE sweep, the max and sum online, O
+              rescaled, O / sum at the end
+  exp2        log2(e) folded into the logit scale by the caller (in bf16
+              B1's own arithmetic, so 'noscore''s bits)
+  noexp       p = logits - rowmax (no transcendental; WRONG math, cost
+              bound): two sweeps, the final max first
+  nomax       no row max (UNSAFE math, bounds the max's cost): one sweep
+  mmonly      p = logits, no softmax at all (the product floor): one sweep
 
 ``variant_attention(qkv, variant)`` takes packed qkv (B, N, 3 * 768) and
 returns (out (B, N, 768) in qkv's dtype, colsum (B, 12, 1, N) f32): zeros
@@ -130,8 +134,8 @@ def library() -> ctypes.CDLL:
 
 def check_device(qkv: torch.Tensor):
     """What the probe kernels take beyond ``check_qkv``: a contiguous tensor on
-    a CUDA device, starting on a 16-byte boundary (the bf16 kernels'
-    cp.async copies)."""
+    a CUDA device, starting on a 16-byte boundary (the bf16 kernels' TMA
+    loads)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"no attention probe kernel for device {qkv.device}")
     if not qkv.is_contiguous():
