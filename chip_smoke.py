@@ -59,17 +59,21 @@ printing a result:
     losses, every parameter gradient and the tokens kept at each drop
     block;
 11. build: ``tpat_tpu_torch/csrc/window_attention.cu`` and
-    ``window_attention_bwd.cu`` (both on ``window_attention_tc.cuh``; one
-    nvcc per source of the port, all seven started together), with their
-    ptxas reports;
+    ``window_attention_bwd.cu`` (both on ``window_attention_tc.cuh``) and
+    ``window_attention_banded.cu`` (the bf16 banded form, forward and
+    backward; one nvcc per source of the port, all eight started together),
+    with their ptxas reports;
 12. window kernels vs plain at B=2: the dense form (``fused_window_attention``)
     at N in {64, 256} and the banded form at N in {128, 512}, shifts (0,0)
     and (2,0), H=16/D=32 and H=4/D=32, f32 and bf16, plus one case per form
     and dtype at the scale clamp of 100 (f32 atol scaled with the scale) and
     one bf16 case per form whose template has a row with no live entry
-    (uniform p, its query block kept whole by the tensor-core kernels); the
-    forward and the backward's d_qkv, d_scale and d_template / d_band, and
-    the sha256 of the kernel outputs;
+    (uniform p, its query block kept whole by the tensor-core kernels) and
+    a banded one with live entries off the diagonal blocks (the banded
+    kernels' general loops); the forward and the backward's d_qkv, d_scale
+    and d_template / d_band, the sha256 of the kernel outputs, and each
+    case's launches by source (bf16 banded on ``window_attention_banded.cu``
+    alone, the rest on the other two);
 13. pretrain path at full width: ``engine/pretrain.py``'s train step on
     ``mae_vit_base_dec512d8b`` (bf16, b32, mask ratio 0.8, seeded weights),
     a few steps on one fixed batch at the AudioSet grid (target length
@@ -81,7 +85,9 @@ printing a result:
 14. every kernel of the pretrain path vs plain at each recorded B=32
     geometry (the window kernels, B1 and B3 at N = 103 and 52), compared and
     timed with CUDA events in turns, beside the library call; the window
-    forward also by its kernels' device time (``torch.profiler``);
+    kernels also by their device time (``torch.profiler``), and the banded
+    backward run twice more at its geometry, its d_qkv, d_scale and d_band
+    held equal bit for bit;
 15. one f32 pretrain step at each grid, the window kernels vs 'xla', from
     the same weights, batch and step generator (the same masks and
     dropout): the loss and every parameter gradient;
@@ -399,7 +405,8 @@ def build_kernels():
     from tpat_tpu_torch.ops import _build
 
     names = ("qkv_attention", "qkv_attention_bwd", "window_attention",
-             "window_attention_bwd", "layernorm", "attn_probe", "ln_matmul")
+             "window_attention_bwd", "window_attention_banded", "layernorm",
+             "attn_probe", "ln_matmul")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
@@ -568,15 +575,64 @@ WINDOW_BWD_BUILD = (
 WINDOW_FWD_NOTE = (
     "ms by CUDA events around each call's wrapper, which at tens of "
     "microseconds a call includes the host's launch rate; device_ms is the "
-    "summed duration of the call's two kernels (live map and main), "
-    "torch.profiler")
+    "summed duration of the call's kernels (B5: live map and main; B6: its "
+    "one kernel), torch.profiler")
+WINDOW_BANDED_BUILD = (
+    "window_attention_banded",
+    "bf16 banded, one kernel a direction: one CTA per (128-token chunk, "
+    "head, batch slice), two groups of 8 warps on alternate samples of the "
+    "slice in batch order, a warp per 16 rows; the band in shared memory "
+    "and its 8 x 8 live map from warp ballots; a sample's q, k, v (and dO) "
+    "as 128 x 32 TMA boxes (3-D maps over the packed input, 64-byte "
+    "swizzle) into a stage on the group's mbarrier (forward a stage a "
+    "group, backward one taken in turns), copied out into padded tiles "
+    "with q and k normalised and split (split_row), the stage refilled at "
+    "once; mma.sync m16n8k16, cos, dq^ and dk^ split-bf16; forward one "
+    "sweep where a query block has one live block (else two); backward "
+    "m, l, delta and dq^ by query block and, where each query block's live "
+    "block is its own, dk^ and dv from the same fragments transposed "
+    "(movmatrix), else a key-major sweep; d_band per group in an L2 slab, "
+    "the slabs summed in (slice, group) order by the last CTA of each "
+    "(chunk, head) (integer ticket), d_scale one partial a CTA",
+    {"fwd": ("window_attention_banded_fwd_kernel",),
+     "bwd": ("window_attention_banded_bwd_kernel",)})
+
+
+def banded_build() -> dict:
+    """``build_fields`` of ``csrc/window_attention_banded.cu``, with each
+    kernel's shared memory: the static bytes ptxas reports plus the dynamic
+    bytes the launch asks for (``tpat_window_attention_banded_smem``)."""
+    from tpat_tpu_torch.ops import _build
+    from tpat_tpu_torch.ops import window_attention as wa
+
+    fields = build_fields(*WINDOW_BANDED_BUILD)
+    static, entry = {}, None
+    log_text = _build.build(WINDOW_BANDED_BUILD[0]).with_suffix(".log")
+    for line in log_text.read_text().splitlines():
+        if "Compiling entry function '" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and "bytes smem" in line and entry is not None:
+            words = line.replace(",", "").split()
+            static[entry] = int(words[words.index("smem") - 2])
+            entry = None
+    lib = wa._banded_library()
+    fields["shared_bytes"] = {}
+    for label, (kernel,) in WINDOW_BANDED_BUILD[2].items():
+        found = [v for e, v in static.items() if kernel in e]
+        dynamic = lib.tpat_window_attention_banded_smem(int(label == "bwd"))
+        fields["shared_bytes"][label] = found[0] + dynamic
+    return fields
+
+
 # the window backward entries' bound counts the function's work, not the
 # kernel's instructions
 WINDOW_BWD_NOTE = (
     "bound_ms is the function's work (each input read once, each output "
     "written once, 10 D FLOPs per live pair), not the kernel's "
-    "instructions: it computes cos and dp twice per sample and cos, dq^ "
-    "and dk^ as three bf16 products each")
+    "instructions: cos, dq^ and dk^ are three bf16 products each, and B5 "
+    "computes cos and dp twice per sample; device_ms is the summed duration "
+    "of the call's kernels (B5: live map, main, template sum; B6: its one "
+    "kernel), torch.profiler")
 
 
 def _close(got, want, atol, rtol) -> float:
@@ -1610,6 +1666,23 @@ def _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
             max(e / top if top else 0.0 for e, top in errs))
 
 
+def _window_counts(wa) -> tuple:
+    return (wa.launches, wa.bwd_launches, wa.banded_launches,
+            wa.banded_bwd_launches)
+
+
+def _sources_ran(wa, before, banded, dt, what):
+    """A forward and a backward since ``before`` ran one kernel of each
+    direction of the source their call takes: bf16 banded
+    ``window_attention_banded.cu`` (never the other two), else
+    ``window_attention.cu`` and ``window_attention_bwd.cu``."""
+    got = tuple(a - b for a, b in zip(_window_counts(wa), before))
+    want = (0, 0, 1, 1) if banded and dt == torch.bfloat16 else (1, 1, 0, 0)
+    if got != want:
+        raise AssertionError(f"{what}: launches (window_attention, _bwd, "
+                             f"_banded fwd, bwd) {got}, expected {want}")
+
+
 def window_vs_plain() -> dict:
     """Phase 12: the window kernels vs their plain versions at B=2."""
     from tpat_tpu_torch.ops import window_attention as wa
@@ -1628,8 +1701,10 @@ def window_vs_plain() -> dict:
                                 f"shift={shift} {dt}")
                         args = _window_inputs(2, h, 32, (n // 8, 8), shift,
                                               banded, dt, gen)
+                        before = _window_counts(wa)
                         ef, eb, rb = _compare_window(wa, *args, banded, what,
                                                      digest=digest)
+                        _sources_ran(wa, before, banded, dt, what)
                         key = "B6" if banded else "B5"
                         worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
                         worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
@@ -1654,18 +1729,28 @@ def window_vs_plain() -> dict:
                 rel[f"{key} at the clamp"] = rb
             count += 1
     # a template row with no live entry (uniform p over its window): the
-    # tensor-core kernels keep its 16-row query block whole
-    for banded, n in ((False, 256), (True, 512)):
+    # tensor-core kernels keep its 16-row query block whole; and, banded,
+    # finite entries in blocks off each row's own window (the banded
+    # kernels' general loops, more than one live block a query block)
+    edits = {"row 5 all -1e30": ((5, slice(None), -1e30),),
+             "entries off the diagonal blocks": ((3, slice(100, 110), 0.5),
+                                                 (200, slice(0, 20), -0.25))}
+    for banded, n, label in ((False, 256, "row 5 all -1e30"),
+                             (True, 512, "row 5 all -1e30"),
+                             (True, 512, "entries off the diagonal blocks")):
         key = "B6" if banded else "B5"
-        what = f"{key} H=16 N={n} shift=(2, 0) bf16, row 5 all -1e30"
+        what = f"{key} H=16 N={n} shift=(2, 0) bf16, {label}"
         qkv, scale, tmpl, d_out = _window_inputs(
             2, 16, 32, (n // 8, 8), (2, 0), banded, torch.bfloat16, gen)
-        tmpl[:, 5] = -1e30
+        for row, cols, value in edits[label]:
+            tmpl[:, row, cols] = value
+        before = _window_counts(wa)
         ef, eb, rb = _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
                                      digest=digest)
+        _sources_ran(wa, before, banded, torch.bfloat16, what)
         worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
         worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
-        rel[f"{key} row without a live entry"] = rb
+        rel[f"{key} {label}"] = rb
         count += 1
     log(f"window kernels vs plain at B=2, {count} cases (f32 and bf16): worst "
         "abs err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
@@ -1673,6 +1758,10 @@ def window_vs_plain() -> dict:
         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
         + f"; the kernel outputs' sha256 {digest.hexdigest()}")
     return worst
+
+
+# phase 14's two runs of the banded backward at each of its geometries
+WINDOW_REPEATS = {}
 
 
 def _pretrain_counts(qa, wa) -> tuple:
@@ -1782,7 +1871,7 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
     per_call, worst = {}, {}
     for call in sorted({c for w in walks.values() for c in w}, key=str):
         backend = None  # the library call's SDPA backend, where it is chosen
-        dev = None  # the window forward's device ms (torch.profiler)
+        dev = None  # a window kernel's device ms (torch.profiler)
         if call[0] in ("fwd", "bwd"):
             kind, b, n, c3, dt, h, mode, extra, kv, has_ds = call
             if mode is not None or kv is not None or has_ds:
@@ -1829,9 +1918,22 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
                 k, p = _turns(
                     lambda: wa.window_attention_bwd(qkv, scale, tmpl, d_out, banded),
                     lambda: plain_bwd(qkv, scale, tmpl, d_out))
+                dev = _device_ms(
+                    lambda: wa.window_attention_bwd(qkv, scale, tmpl, d_out, banded))
                 lib, backend = library_ms("window", qkv, h, scale=scale,
                                           template=tmpl, banded=banded,
                                           d_out=d_out)
+                if banded:  # d_band and d_scale are sums: the same bits twice
+                    one = wa.window_attention_bwd(qkv, scale, tmpl, d_out, True)
+                    two = wa.window_attention_bwd(qkv, scale, tmpl, d_out, True)
+                    for label, x, y in zip(("d_qkv", "d_scale", "d_band"),
+                                           one, two):
+                        if not torch.equal(x, y):
+                            raise AssertionError(
+                                f"{name} B={b} N={n}: {label} differs "
+                                "between two runs")
+                    WINDOW_REPEATS[f"B={b} N={n} H={h}"] = (
+                        "d_qkv, d_scale, d_band equal bit for bit in two runs")
             bnd = work_bound(window_work(qkv, tmpl, banded, kind == "wbwd"),
                              dt)
         worst[name] = max(worst.get(name, 0.0), err)
@@ -4897,6 +4999,13 @@ def run_phases(tmp):
                  "B6 bwd": dp[7]}
     if min(window_launches.values()) == 0:
         raise AssertionError(f"window kernel launches {window_launches}")
+    if not WINDOW_REPEATS:
+        raise AssertionError("no banded backward was run twice")
+    from tpat_tpu_torch.ops import window_attention as wa
+    banded_fields = banded_build()
+    banded_slices = {f"{d} B={PRETRAIN_BATCH} N=512 H=16": wa.banded_slices(
+        PRETRAIN_BATCH, 512, 16, d == "bwd", torch.cuda.current_device())
+        for d in ("fwd", "bwd")}
     step = sums[EPOCH_LABELS[3]]
     per_step = "one b128 bf16 hybrid train step at bucket 0.8"
     bwd = "tpat_tpu/ops/pallas_attention.py:366"
@@ -5018,19 +5127,23 @@ def run_phases(tmp):
              "tpat_tpu/ops/pallas_window_attention.py:222")):
         e = pre_sums[grid][key]
         fwd = key.endswith("fwd")
-        build = WINDOW_FWD_BUILD if fwd else WINDOW_BWD_BUILD
         extra = {"library_backend": sorted(e["backends"]),
-                 "dp_launches": window_dp[key]}
-        if fwd:
-            extra.update(device_ms=e["device_ms"], note=WINDOW_FWD_NOTE)
+                 "dp_launches": window_dp[key], "device_ms": e["device_ms"],
+                 "note": WINDOW_FWD_NOTE if fwd else WINDOW_BWD_NOTE}
+        if key.startswith("B6"):
+            source, fields = "window_attention_banded.cu", banded_fields
+            extra["slices"] = banded_slices
+            if not fwd:
+                extra["same_bits_twice"] = dict(WINDOW_REPEATS)
         else:
-            extra["note"] = WINDOW_BWD_NOTE
+            build = WINDOW_FWD_BUILD if fwd else WINDOW_BWD_BUILD
+            source, fields = build[0] + ".cu", build_fields(*build)
         kernels.append(_entry(
-            name, build[0] + ".cu", replaces, window_launches[key],
+            name, source, replaces, window_launches[key],
             max(win_err[key], pre_err[key]), e["ms"], e["plain_ms"],
             bound_of(e["bound"]), e["library_ms"],
             f"one b{PRETRAIN_BATCH} bf16 MAE pretrain step at the {grid} grid "
-            f"({e['calls']} calls)", **extra, **build_fields(*build)))
+            f"({e['calls']} calls)", **extra, **fields))
     ln_fwd = _sum_walk(ln_per, serve_walk)
     ln_bwd = _sum_walk(ln_per, [c for c in ln_walks[EPOCH_LABELS[4]]
                                 if c[0] == "lnbwd"])

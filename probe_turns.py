@@ -1,8 +1,10 @@
-"""Phase 19 of ``chip_smoke.py`` for two trees in one call on the card: the
-attention probes P1/P2 of this tree against those of a parent tree, each
-tree's own code, in turns parent, change, change, parent.
+"""Two trees' kernels in one call on the card, each tree's own code, in
+turns parent, change, change, parent: phase 19 of ``chip_smoke.py`` (the
+attention probes P1/P2), or with ``--window`` the banded window attention
+B6.
 
-    python3 probe_turns.py <parent tree> [--out chiprun_out/probe_turns.json]
+    python3 probe_turns.py <parent tree> [--window] [--out FILE]
+    python3 probe_turns.py --phases [--out FILE]
 
 The parent tree is a ``git archive`` of the parent commit unpacked under a
 directory that ``.gitignore`` lists (``build/``).  Each turn is one
@@ -11,7 +13,23 @@ tree's ``chip_smoke.check_device``, ``probes_vs_plain`` and
 ``probe_builds``, runs each attention probe's ``main()`` at 200 timed calls
 a row, and times B1 (``fused_qkv_attention`` without scores and with
 'patch_mean' scores) beside P1 'noscore' and 'full' at B = 128, N = 257 and
-181, in turns.  Every turn's record goes into one JSON file."""
+181, in turns.  With ``--window`` a turn holds B6 forward and backward
+against plain at B = 32, N = 512 (the AudioSet grid), H = 16, D = 32, bf16,
+shift (2, 0), times each by CUDA events (the mean of two runs of 20 calls)
+and by its kernels' device time (``torch.profiler``), and times phase 13's
+AudioSet-grid b32 pretrain step through the kernels and through 'xla'
+(``cli.profile_pretrain.time_steps``).  Every turn's record goes into one
+JSON file (default ``build/probe_turns.json``, with ``--window``
+``build/window_turns.json``; ``--out`` names another).
+
+``--phases`` looks into this tree's B6 alone (``build/
+window_phases.json``): each kernel's device time by ``torch.profiler`` and
+by CUDA events around 20 calls queued behind a 20 ms spin of the card (so
+that the host's gaps between calls are hidden), at the slices the library
+picks and at 1, 4 and 32; then a copy of ``csrc/window_attention_banded.cu``
+with clock64 marks after each step of the forward's and the backward's
+diagonal loop, built and run at the same shapes, whose first warp per CTA
+gives the cycles per sample of each step."""
 
 import json
 import os
@@ -56,13 +74,171 @@ def turn(tree: str) -> dict:
     return rec
 
 
+def window_turn(tree: str) -> dict:
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+
+    import chip_smoke as cs
+    from tpat_tpu_torch.cli import profile_pretrain as pp
+    from tpat_tpu_torch.ops import window_attention as wa
+
+    rec = {"tree": tree, "card": cs.check_device()}
+    cs.build_kernels()  # all of the tree's sources at once
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
+    qkv, scale, band, d_out = cs._window_inputs(
+        32, 16, 32, (64, 8), (2, 0), True, torch.bfloat16, gen)
+    fwd, bwd = cs._compare_window(wa, qkv, scale, band, d_out, True,
+                                  "B6 B=32 N=512")[:2]
+    rec["max_abs_err"] = {"fwd": fwd, "bwd": bwd}
+    calls = {"fwd": lambda: wa.fused_window_attention_banded(qkv, scale, band),
+             "bwd": lambda: wa.window_attention_bwd(qkv, scale, band, d_out,
+                                                     True)}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            rec[f"{name}_ms"] = (cs._time_ms(fn) + cs._time_ms(fn)) / 2
+            rec[f"{name}_device_ms"] = cs._device_ms(fn)
+    rec["step_ms"] = pp.time_steps(1024, cs.PRETRAIN_TIMED)
+    return rec
+
+
+# clock64 marks: after each anchor of a loop, the cycles since the last
+# mark are added to that step's sum
+MARKS = {
+    "fwd": ("  for (int i = x.group, k = 0; i < x.count; i += kGroups, ++k) {\n"
+            "    x.take(i, k);\n    uint32_t qh[kD / 16][4], ql[kD / 16][4];\n",
+            {"take (wait, copy-out and split, barriers)": "    x.take(i, k);\n",
+             "stats sweep": "    stats<false>(m, l, unused, e, cs, dp, qh, ql, nullptr, t, x.band, scale, qb,\n                 x.qlive, lane);\n",
+             "p and p.v": "      mma::product_nn<kD>(acc, pa, t.vt, kb * kBlk, lane);\n    }\n",
+             "store out": "        x.c, acc, qb * kBlk, kW, 1.f, lane);\n"}),
+    "bwd": ("  for (int i = x.group, k = 0; i < x.count; i += kGroups, ++k) {\n"
+            "    float2 old[2][2];",
+            {"slab load, take": "    x.take(i, k);\n",
+             "stats sweep": "    w.rows(m, il, delta, e, cs, dp, qh, ql, da);\n",
+             "dlog, dq^, store dq": "                         kW, lane);\n",
+             "transposes, dk^, dv, stores": "    mma::store_rows<kD>(dst + 2 * x.c, w.stride, dv, qb * kBlk, kW, 1.f,\n                        lane);\n"}),
+}
+
+
+def instrumented(src: str) -> str:
+    """The source with clock64 sums per step in the forward's loop and the
+    backward's diagonal loop, written out per CTA by its first warp."""
+    src = src.replace(
+        "namespace {\n\nusing mma::bf16;",
+        "__device__ unsigned long long tpat_cycles[2][1024][8];\n"
+        "extern \"C\" int tpat_cycles_read(void* dst) {\n"
+        "  return cudaMemcpyFromSymbol(dst, tpat_cycles, sizeof(tpat_cycles));\n}\n"
+        "namespace {\n\nusing mma::bf16;", 1)
+    for d, (loop, anchors) in MARKS.items():
+        at = src.index(loop)
+        src = (src[:at] + "  unsigned long long acc_[8] = {0};\n"
+               "  unsigned long long last_ = clock64();\n" + src[at:])
+        pos = at
+        for k, anchor in enumerate(anchors.values()):
+            pos = src.index(anchor, pos) + len(anchor)
+            mark = ("    { const unsigned long long t_ = clock64(); "
+                    f"acc_[{k}] += t_ - last_; last_ = t_; }}\n")
+            src = src[:pos] + mark + src[pos:]
+        end = src.index("\n  }\n", pos) + len("\n  }\n")
+        out = ("  if (threadIdx.x == 0) {\n"
+               "    const int cta = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);\n"
+               f"    if (cta < 1024) for (int k = 0; k < 7; ++k) tpat_cycles[{int(d == 'bwd')}][cta][k] = acc_[k];\n"
+               f"    if (cta < 1024) tpat_cycles[{int(d == 'bwd')}][cta][7] = (x.count + 1) / 2;\n  }}\n")
+        src = src[:end] + out + src[end:]
+    return src
+
+
+def phases() -> dict:
+    import ctypes
+    import subprocess as sp
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpat_tpu_torch.ops import _build
+    from tpat_tpu_torch.ops import window_attention as wa
+
+    rec = {"card": cs.check_device()}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
+    qkv, scale, band, d_out = cs._window_inputs(
+        32, 16, 32, (64, 8), (2, 0), True, torch.bfloat16, gen)
+    calls = {"fwd": lambda: wa.fused_window_attention_banded(qkv, scale, band),
+             "bwd": lambda: wa.window_attention_bwd(qkv, scale, band, d_out,
+                                                     True)}
+
+    def queued(fn, iters=20):
+        torch.cuda._sleep(int(2e7))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    chosen = wa.banded_slices
+    with torch.no_grad():
+        for slices in (None, 1, 4, 32):
+            if slices is not None:
+                wa.banded_slices = lambda *args, s=slices: s
+            key = f"slices {slices or chosen(32, 512, 16, False, 0)}" + (
+                "" if slices else " (the library's)")
+            rec[key] = {f"{d}_{m}": f(fn) for d, fn in calls.items()
+                        for m, f in (("device_ms", cs._device_ms),
+                                     ("queued_ms", queued))}
+            print(key, rec[key], flush=True)
+        wa.banded_slices = chosen
+    src = _build.CSRC / "window_attention_banded.cu"
+    path = _build.BUILD_DIR / "window_attention_banded_phases.cu"
+    lib = _build.BUILD_DIR / "libwindow_attention_banded_phases.so"
+    path.write_text(instrumented(src.read_text()))
+    sp.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+            str(lib), str(path)], check=True, capture_output=True)
+    load = _build.load
+    _build.load = lambda name: ctypes.CDLL(str(lib))
+    wa._banded_library.cache_clear()
+    cdll = wa._banded_library()
+    _build.load = load
+    cdll.tpat_cycles_read.argtypes = [ctypes.c_void_p]
+    with torch.no_grad():
+        for d, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            cycles = np.zeros((2, 1024, 8), np.uint64)
+            assert cdll.tpat_cycles_read(cycles.ctypes.data) == 0
+            ctas = 64 * chosen(32, 512, 16, d == "bwd", 0)
+            per = (cycles[int(d == "bwd"), :ctas, :7].astype(np.float64)
+                   / cycles[int(d == "bwd"), :ctas, 7:8].astype(np.float64))
+            rec[f"{d} cycles a sample"] = dict(zip(MARKS[d][1], (
+                round(float(v), 1) for v in per.mean(0))))
+            print(d, rec[f"{d} cycles a sample"], flush=True)
+    wa._banded_library.cache_clear()
+    return rec
+
+
 def main():
+    if "--phases" in sys.argv:
+        out = (sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv
+               else os.path.join(HERE, "build", "window_phases.json"))
+        os.chdir(HERE)
+        sys.path.insert(0, HERE)
+        rec = phases()
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"probe_turns: phases into {out}")
+        return
     parent = os.path.abspath(sys.argv[1])
+    window = "--window" in sys.argv
     out = (sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv
-           else os.path.join(HERE, "chiprun_out", "probe_turns.json"))
+           else os.path.join(HERE, "build", "window_turns.json"
+                             if window else "probe_turns.json"))
     records = []
     for tree in (parent, HERE, HERE, parent):
-        proc = subprocess.run([sys.executable, __file__, "--turn", tree],
+        proc = subprocess.run([sys.executable, __file__,
+                               "--window-turn" if window else "--turn", tree],
                               capture_output=True, text=True)
         sys.stdout.write(proc.stdout[-4000:])
         if proc.returncode != 0:
@@ -78,5 +254,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--turn"]:
         print(json.dumps(turn(os.path.abspath(sys.argv[2]))))
+    elif sys.argv[1:2] == ["--window-turn"]:
+        print(json.dumps(window_turn(os.path.abspath(sys.argv[2]))))
     else:
         main()

@@ -1,9 +1,11 @@
 """The algorithm of the bf16 window-attention forward kernel
 (tpat_tpu_torch/csrc/window_attention.cu, the tensor-core kernel), which
 cannot run here, as a PyTorch model held against the JAX package's
-``fused_window_attention`` and ``fused_window_attention_banded`` (their
-Pallas kernels in interpret mode, as tests/test_window_attention.py runs
-them).
+``fused_window_attention`` (its Pallas kernel in interpret mode, as
+tests/test_window_attention.py runs it).  The banded cases hold the model
+of the kernel bf16 banded calls run, window_attention_banded.cu's
+(tests/test_torch_window_attention_banded.py), against
+``fused_window_attention_banded``.
 
 The model follows the kernel step by step: per (sample, head, window unit)
 the live map of 16 x 16 template blocks, q and k normalised in f32 and split
@@ -109,6 +111,17 @@ def kernel_model(qkv, scale, tmpl, banded, skip=True):
     return out.reshape(b, n, h * d).to(torch.bfloat16), m, l
 
 
+def model(qkv, scale, tmpl, banded, skip=True):
+    """(out, m, l) of the kernel a call runs: the dense form's here; the
+    banded form's is window_attention_banded.cu's
+    (tests/test_torch_window_attention_banded.py), which bf16 banded calls
+    run."""
+    if banded:
+        from tests.test_torch_window_attention_banded import forward_model
+        return forward_model(qkv, scale, tmpl, skip=skip)
+    return kernel_model(qkv, scale, tmpl, banded, skip)
+
+
 def _jax_forward(qkv, scale, tmpl, banded):
     fn = jpwa.fused_window_attention_banded if banded else jpwa.fused_window_attention
     out = fn(jnp.asarray(qkv.float().numpy(), jnp.bfloat16),
@@ -118,7 +131,7 @@ def _jax_forward(qkv, scale, tmpl, banded):
 
 def _check(args, banded):
     qkv, scale, tmpl, _ = args
-    out, _, _ = kernel_model(qkv, scale, tmpl, banded)
+    out, _, _ = model(qkv, scale, tmpl, banded)
     assert out.dtype == torch.bfloat16
     got = out.float().numpy()
     want = _jax_forward(qkv, scale, tmpl, banded)
@@ -158,7 +171,7 @@ def test_a_row_with_no_live_entry_is_uniform(banded):
     tmpl[:, 5] = -1e30
     assert _live_map(tmpl[0, :CHUNK])[0].all()
     _check((qkv, scale, tmpl, d_out), banded)
-    out, _, _ = kernel_model(qkv, scale, tmpl, banded)
+    out, _, _ = model(qkv, scale, tmpl, banded)
     h = scale.shape[0]
     w = CHUNK if banded else qkv.shape[1]
     v = qkv.float().chunk(3, dim=-1)[2].reshape(2, -1, h, 32)[:, :w]
@@ -173,8 +186,8 @@ def test_skipping_dead_blocks_keeps_the_bits(banded):
     exactly: the model with the skip equals the model over every block bit
     for bit (out, m and l)."""
     qkv, scale, tmpl, _ = _inputs((16, 8), (2, 0), banded, seed=81)
-    skip = kernel_model(qkv, scale, tmpl, banded)
-    full = kernel_model(qkv, scale, tmpl, banded, skip=False)
+    skip = model(qkv, scale, tmpl, banded)
+    full = model(qkv, scale, tmpl, banded, skip=False)
     for a, b in zip(skip, full):
         assert torch.equal(a, b)
 
@@ -186,7 +199,7 @@ def test_forward_stats_equal_the_backward_stats(banded):
     model's stats sweep bit for bit, so the recomputed backward sees the
     forward's softmax."""
     qkv, scale, tmpl, d_out = _inputs((16, 8), (0, 0), banded, seed=91)
-    _, m, l = kernel_model(qkv, scale, tmpl, banded)
+    _, m, l = model(qkv, scale, tmpl, banded)
     b, n, c3 = qkv.shape
     h = scale.shape[0]
     w = CHUNK if banded else n

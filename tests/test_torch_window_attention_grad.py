@@ -1,9 +1,11 @@
 """The algorithm of the bf16 window-attention backward kernels
 (tpat_tpu_torch/csrc/window_attention_bwd.cu), which cannot run here, as a
 PyTorch model held against ``jax.vjp`` of the JAX package's
-``fused_window_attention`` and ``fused_window_attention_banded`` (their
-Pallas kernels in interpret mode, as tests/test_window_attention.py runs
-them).
+``fused_window_attention`` (its Pallas kernels in interpret mode, as
+tests/test_window_attention.py runs them).  The banded cases hold the
+model of the kernel bf16 banded calls run, window_attention_banded.cu's
+(tests/test_torch_window_attention_banded.py), against ``jax.vjp`` of
+``fused_window_attention_banded``; this file's helpers are that model's.
 
 The model follows the kernels step by step: per (sample, head, window
 unit) the live map of 16 x 16 blocks, q and k normalised in f32 and split
@@ -222,9 +224,21 @@ def _jax_vjp(qkv, scale, tmpl, d_out, banded):
             for g in vjp(jnp.asarray(d_out.float().numpy(), jnp.bfloat16))]
 
 
+def model(qkv, scale, tmpl, d_out, banded, skip=True, diagonal=None):
+    """(d_qkv, d_scale, d_template) of the kernels a call runs: the dense
+    form's here; the banded form's are window_attention_banded.cu's
+    (tests/test_torch_window_attention_banded.py, ``diagonal`` its choice of
+    loop), which bf16 banded calls run."""
+    if banded:
+        from tests.test_torch_window_attention_banded import backward_model
+        return backward_model(qkv, scale, tmpl, d_out, skip=skip,
+                              diagonal=diagonal)
+    return kernel_model(qkv, scale, tmpl, d_out, banded, skip)
+
+
 def _check(feat, shift, banded, seed, scale_value=None):
     args = _inputs(feat, shift, banded, seed, scale_value)
-    d_qkv, d_scale, d_template = kernel_model(*args, banded)
+    d_qkv, d_scale, d_template = model(*args, banded)
     assert d_qkv.dtype == torch.bfloat16
     want = _jax_vjp(*args, banded)
     got = [x.float().numpy() for x in (*d_qkv.chunk(3, dim=-1), d_scale, d_template)]
@@ -263,8 +277,10 @@ def test_skipping_dead_blocks_keeps_the_bits(banded):
     block bit for bit, and the skip leaves at most 1 in 4 blocks (the grid's
     windows span two 16-token blocks at most, a chunk's exactly one)."""
     args = _inputs((16, 8), (2, 0), banded, seed=31)
-    skip = kernel_model(*args, banded)
-    full = kernel_model(*args, banded, skip=False)
+    # the banded kernel's general loop both times (every block is live
+    # without the skip, so its diagonal loop does not apply)
+    skip = model(*args, banded, diagonal=False)
+    full = model(*args, banded, skip=False, diagonal=False)
     for a, b in zip(skip, full):
         assert torch.equal(a, b)
     tm = args[2][0, :CHUNK]

@@ -1,11 +1,11 @@
 // Fused swin_v2_cr window attention, forward, for Hopper (sm_90a): the dense
-// and the banded form in each of two kernel bodies, bf16 on the tensor cores
-// and an exact f32 FMA kernel.
+// form in bf16 on the tensor cores, and both forms in f32 in an exact FMA
+// kernel.  The banded form in bf16 is window_attention_banded.cu's.
 //
 // Replaces tpat_tpu/ops/pallas_window_attention.py::_fwd_kernel, the TPU
 // kernel that both _fused_impl (dense, the ESC-50 decoder grid, N = 256) and
 // _banded_impl (banded, the AudioSet grid, N = 512) run in every block of
-// the MAE decoder.
+// the MAE decoder: here as _fused_impl runs it (and, in f32, _banded_impl).
 //
 // What it computes, per (batch b, head h), from the packed (B, N, 3C) qkv
 // (sections [q | k | v], heads contiguous, C = H * D), the (H,) f32 scales
@@ -29,8 +29,11 @@
 // tensor cores.  At the AudioSet decoder (N = 512, banded) qkv is 50 MB,
 // the band 4.2 MB, out 16.8 MB: about 21 us.  Memory-bound.
 //
-// bf16 (every pretrain step), one tensor-core design for both forms, on
-// window_attention_tc.cuh, which the backward shares:
+// bf16 (every ESC-50-grid pretrain step), a tensor-core design written for
+// both forms, on window_attention_tc.cuh, which the backward shares; the
+// entry point takes the dense form only (the banded form, whose launches
+// and staging this design spends its time on, is window_attention_banded
+// .cu's: one kernel, batch-looping CTAs on TMA):
 //   0. live: the live map of 16 x 16 template blocks (one launch per call,
 //      reading the template once); a block with no entry above -1e29 has
 //      p = 0 exactly, and a query block with a row that has no live entry
@@ -386,8 +389,9 @@ extern "C" int tpat_window_attention_fwd(const void* qkv, const void* scale,
                   static_cast<unsigned char*>(scratch), out, n, num_heads,
                   banded};
   const auto s = static_cast<cudaStream_t>(stream);
-  // head_dim 32 only: the MAE decoder's 512 / 16, the one width the path runs
-  if (head_dim != 32) return cudaErrorInvalidValue;
+  // head_dim 32 only: the MAE decoder's 512 / 16, the one width the path
+  // runs; the banded form in bf16 is window_attention_banded.cu's
+  if (head_dim != 32 || (banded && dtype == 1)) return cudaErrorInvalidValue;
   if (tc) return launch_bf16<32>(a, batch, s);
   if (dtype == 0) return launch<float, 32>(a, batch, s);
   if (dtype == 1) return launch<__nv_bfloat16, 32>(a, batch, s);

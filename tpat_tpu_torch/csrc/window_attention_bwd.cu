@@ -1,11 +1,12 @@
 // Fused swin_v2_cr window attention, backward, for Hopper (sm_90a): the dense
-// and the banded form in one set of kernel bodies.
+// form in bf16 on the tensor cores, and both forms in f32 in exact FMA
+// kernels.  The banded form in bf16 is window_attention_banded.cu's.
 //
 // Replaces tpat_tpu/ops/pallas_window_attention.py::_bwd_kernel (dense, via
-// _fused_bwd_impl) and ::_banded_bwd_kernel (banded, via _banded_bwd_impl),
-// the TPU kernels the custom VJPs of fused_window_attention and
-// fused_window_attention_banded run in every decoder block of an MAE
-// pretrain step.
+// _fused_bwd_impl) and, in f32, ::_banded_bwd_kernel (banded, via
+// _banded_bwd_impl), the TPU kernels the custom VJPs of
+// fused_window_attention and fused_window_attention_banded run in every
+// decoder block of an MAE pretrain step.
 //
 // What it computes, per (batch b, head h), with the forward's notation (the
 // row's window of keys is the whole grid, or its own 128-token chunk):
@@ -34,9 +35,11 @@
 // template entry is not the -1e30 exclusion), a few us on the tensor cores.
 // At the AudioSet decoder (N = 512, banded) about 126 MB, 38 us.
 //
-// bf16 (every pretrain step), one tensor-core design for both forms, whose
-// live map, staging, split and stats sweep are window_attention_tc.cuh's,
-// shared with the forward.  A CTA takes one (window unit, head, sample):
+// bf16 (every ESC-50-grid pretrain step), a tensor-core design written for
+// both forms, whose live map, staging, split and stats sweep are
+// window_attention_tc.cuh's, shared with the forward (and its split_nn and
+// normalize VJP window_attention_tc_grad.cuh's, shared with
+// window_attention_banded.cu); the entry point takes the dense form only.  A CTA takes one (window unit, head, sample):
 // the unit is the row's whole key window, the grid (dense, N <= 256) or one
 // 128-token chunk (banded), so its queries are its keys and it writes dq,
 // dk and dv complete.  One warp per 16 rows of the unit (W <= 256 rows: at
@@ -89,6 +92,7 @@
 #include "attention_mma.cuh"
 #include "window_attention_common.cuh"
 #include "window_attention_tc.cuh"
+#include "window_attention_tc_grad.cuh"
 
 namespace {
 
@@ -587,52 +591,6 @@ size_t bwd_smem_bytes(int nb) {
          5 * static_cast<size_t>(rows) * 4 + kBlk * 4 + nb * nb;
 }
 
-// acc += (A_hi + A_lo) . (tile_hi + tile_lo)[k0 .. k0 + 16) without lo.lo.
-template <int D>
-__device__ __forceinline__ void split_nn(float acc[D / 8][4],
-                                         const uint32_t ahi[4],
-                                         const uint32_t alo[4],
-                                         const mma::bf16* thi,
-                                         const mma::bf16* tlo, int k0,
-                                         int lane) {
-  mma::product_nn<D>(acc, ahi, thi, k0, lane);
-  mma::product_nn<D>(acc, ahi, tlo, k0, lane);
-  mma::product_nn<D>(acc, alo, thi, k0, lane);
-}
-
-// The F.normalize VJP of a warp's 16 rows from row r0 of the staged x^
-// (hi + lo) in the accumulator layout, g <- (g - x^ <x^, g>) * fac[row],
-// then stored as bf16 rows of dst; rows at or past `valid` are skipped.
-template <int D>
-__device__ __forceinline__ void store_normalised(
-    mma::bf16* dst, size_t stride, float g[D / 8][4], const mma::bf16* xhi,
-    const mma::bf16* xlo, const float* fac, int r0, int valid, int lane) {
-  constexpr int ld = TcSmem<D>::kLd;
-  const int t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + (lane >> 2) + 8 * i;
-    float xs[D / 8][2];
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int at = r * ld + 8 * j + t2 + e;
-        xs[j][e] = __bfloat162float(xhi[at]) + __bfloat162float(xlo[at]);
-        dot = fmaf(xs[j][e], g[j][2 * i + e], dot);
-      }
-    dot = mma::quad_sum(dot);
-    const float f = fac[r];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        g[j][2 * i + e] = (g[j][2 * i + e] - xs[j][e] * dot) * f;
-  }
-  mma::store_rows<D>(dst, stride, g, r0, valid, 1.f, lane);
-}
-
 // 1. main: one CTA per (unit, head, sample), 32 nb threads.
 template <int D>
 __global__ void __launch_bounds__(32 * kMaxWindow / kBlk)
@@ -962,8 +920,9 @@ extern "C" int tpat_window_attention_bwd(
                   static_cast<float*>(dtmpl), static_cast<float*>(ds_part),
                   batch, n, num_heads, banded};
   const auto s = static_cast<cudaStream_t>(stream);
-  // head_dim 32 only: the MAE decoder's 512 / 16, the one width the path runs
-  if (head_dim != 32) return cudaErrorInvalidValue;
+  // head_dim 32 only: the MAE decoder's 512 / 16, the one width the path
+  // runs; the banded form in bf16 is window_attention_banded.cu's
+  if (head_dim != 32 || (banded && dtype == 1)) return cudaErrorInvalidValue;
   if (tc) return launch_bf16<32>(a, s);
   if (dtype == 0) return launch<float, 32>(a, s);
   if (dtype == 1) return launch<__nv_bfloat16, 32>(a, s);

@@ -30,20 +30,28 @@ the f32 template, and return (B, N, C).  Both are
 backward, which returns (d_qkv, d_scale (H,), d_template), the last two
 summed over the batch, as the JAX custom VJPs do:
 
-- on a CUDA tensor the forward launches ``csrc/window_attention.cu`` and the
-  backward ``csrc/window_attention_bwd.cu`` (built with nvcc at first use),
-  or raise.  In bf16 (at a window of up to 256 keys: every banded call and
-  a dense grid of up to 256 tokens) both run on the tensor cores, with
-  split-bf16 products where the TPU kernel's operands are f32, and skip the
-  16 x 16 template blocks that are all -1e30; in f32 (and bf16 at a larger
-  dense grid) they keep exact FMA kernels;
+- on a CUDA tensor they launch a kernel, built with nvcc at first use, or
+  raise.  The banded form in bf16 (every decoder block at the AudioSet
+  grid) runs ``csrc/window_attention_banded.cu``: one kernel a direction,
+  one CTA per (128-token chunk, head, batch slice) of two groups of warps
+  that loop over the slice's samples on a TMA stage each, the band and its
+  live 16 x 16 blocks in shared memory, d_band and d_scale summed in the
+  CTAs in batch order (``banded_slices`` picks the slices).  The dense form
+  in bf16 (a grid of up to 256 tokens) runs the tensor-core kernels of
+  ``csrc/window_attention.cu`` and ``csrc/window_attention_bwd.cu`` (a
+  live-block map, then one CTA per (grid, head, sample); the backward's
+  per-sample d_template partials summed by a third kernel).  Both bf16
+  designs take split-bf16 products where the TPU kernel's operands are f32
+  and skip the blocks that are all -1e30.  f32 (either form) and bf16 at a
+  larger dense grid keep the exact FMA kernels of those two sources;
 - on a CPU tensor they run the plain versions beside them.  That is the
   only case the plain versions serve: nothing falls back from the device.
 
-Launch counters (kernel launches, never plain calls): ``launches`` and
-``banded_launches`` (one per forward), ``bwd_launches`` and
-``banded_bwd_launches`` (one per backward); each call runs its source's
-kernels in turn.
+Launch counters (kernel launches, never plain calls), by source:
+``launches`` and ``bwd_launches`` count ``window_attention.cu`` and
+``window_attention_bwd.cu`` (the dense form, and f32 banded);
+``banded_launches`` and ``banded_bwd_launches`` count
+``window_attention_banded.cu``'s forward and backward.  One per call.
 
 The layout arithmetic ``supports`` / ``supports_banded`` / ``_batch_group``
 is the JAX module's TPU VMEM criterion, kept verbatim so that a model's
@@ -414,6 +422,58 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _banded_library() -> ctypes.CDLL:
+    lib = _build.load("window_attention_banded")
+    fn = lib.tpat_window_attention_banded_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.tpat_window_attention_banded_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.tpat_window_attention_banded_slices.argtypes = [ctypes.c_int] * 4
+    lib.tpat_window_attention_banded_slices.restype = ctypes.c_int
+    lib.tpat_window_attention_banded_groups.argtypes = []
+    lib.tpat_window_attention_banded_groups.restype = ctypes.c_int
+    lib.tpat_window_attention_banded_smem.argtypes = [ctypes.c_int]
+    lib.tpat_window_attention_banded_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _hopper_banded(qkv: torch.Tensor, banded: bool) -> bool:
+    """Whether a call runs ``csrc/window_attention_banded.cu``: the banded
+    form in bf16."""
+    return banded and qkv.dtype == torch.bfloat16
+
+
+@functools.cache
+def banded_slices(batch: int, n: int, num_heads: int, bwd: bool,
+                  device: int) -> int:
+    """The batch slices of a banded bf16 call on CUDA device ``device`` (the
+    current one): the count whose CTAs fill its SMs in the fewest
+    sample-times (the C library decides, from the SM count and the
+    kernel's occupancy)."""
+    s = _banded_library().tpat_window_attention_banded_slices(
+        batch, n, num_heads, int(bwd))
+    if s < 1:
+        raise RuntimeError(
+            f"window_attention_banded slices: CUDA error {-s}")
+    return s
+
+
+_TICKETS = {}  # (device, stream) -> int32 tickets, 0 between calls
+
+
+def _tickets(device, stream: int, count: int) -> torch.Tensor:
+    """The backward's last-CTA tickets on one stream: zeroed once, put back
+    to 0 by the kernel's last CTA of each (chunk, head)."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < count:
+        t = torch.zeros(count, dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = t
+    return t
+
+
 def _check_device(qkv, scale, template, banded):
     if qkv.device.type != "cuda":
         raise ValueError(f"no window_attention kernel for device {qkv.device}")
@@ -443,15 +503,28 @@ def _stream(device) -> int:
 
 
 def _forward_kernel(qkv, scale, template, banded):
-    """Launch the forward source: in bf16 the live-block map, then the
-    tensor-core kernel; else the FMA kernel."""
+    """Launch the forward: banded bf16 runs ``window_attention_banded.cu``
+    (one kernel); the rest ``window_attention.cu`` (in bf16 the live-block
+    map, then the tensor-core kernel; in f32 the FMA kernel)."""
     global launches, banded_launches
     _check_device(qkv, scale, template, banded)
     b, n, c3 = qkv.shape
     h = scale.shape[0]
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    if _hopper_banded(qkv, banded):
+        err = _banded_library().tpat_window_attention_banded_fwd(
+            qkv.data_ptr(), scale.data_ptr(), template.data_ptr(),
+            out.data_ptr(), b, n, h, c3 // 3 // h,
+            banded_slices(b, n, h, False, qkv.get_device()),
+            _stream(qkv.device))
+        if err != 0:
+            raise RuntimeError(
+                f"window_attention_banded kernel launch failed: CUDA error {err}"
+            )
+        banded_launches += 1
+        return out
     lib = _library()
     dtype = _DTYPES[qkv.dtype]
-    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     scratch = torch.empty(
         lib.tpat_window_attention_fwd_scratch_bytes(n, h, dtype, int(banded)),
         dtype=torch.uint8, device=qkv.device)
@@ -464,19 +537,18 @@ def _forward_kernel(qkv, scale, template, banded):
         raise RuntimeError(
             f"window_attention kernel launch failed: CUDA error {err}"
         )
-    if banded:
-        banded_launches += 1
-    else:
-        launches += 1
+    launches += 1
     return out
 
 
 def _backward_kernels(qkv, scale, template, d_out, banded):
-    """Launch the backward source: in bf16 the tensor-core kernels (live
-    blocks; dq, dk, dv and per-sample d_template and d_scale partials;
-    the template sum), else the FMA kernels (rows, cols, template).  The
-    d_scale partials are summed here."""
-    global bwd_launches, banded_bwd_launches
+    """Launch the backward: banded bf16 runs ``window_attention_banded.cu``
+    (one kernel; d_template summed over the batch in its CTAs); the rest
+    ``window_attention_bwd.cu`` (in bf16 the tensor-core kernels: live
+    blocks, dq, dk, dv and per-sample partials, the template sum; in f32
+    the FMA rows, cols and template kernels).  The d_scale partials are
+    summed here."""
+    global bwd_launches
     _check_device(qkv, scale, template, banded)
     b, n, c3 = qkv.shape
     h = scale.shape[0]
@@ -489,6 +561,8 @@ def _backward_kernels(qkv, scale, template, d_out, banded):
         raise ValueError("d_out must be on qkv's device")
     d_out = d_out.contiguous()
     dev = qkv.device
+    if _hopper_banded(qkv, banded):
+        return _banded_backward(qkv, scale, template, d_out)
     lib = _bwd_library()
     dtype = _DTYPES[qkv.dtype]
     parts = lib.tpat_window_attention_bwd_partials(b, n, int(banded), dtype)
@@ -509,11 +583,42 @@ def _backward_kernels(qkv, scale, template, d_out, banded):
         raise RuntimeError(
             f"window_attention_bwd kernel launch failed: CUDA error {err}"
         )
-    if banded:
-        banded_bwd_launches += 1
-    else:
-        bwd_launches += 1
+    bwd_launches += 1
     return d_qkv, ds_parts.sum(dim=1), d_template
+
+
+def _banded_backward(qkv, scale, band, d_out):
+    """The banded bf16 backward, one kernel: d_qkv, and d_band and the
+    d_scale partials summed over the batch in its CTAs (each group of warps
+    of a CTA sums its samples' d_band in its slab of ``part``; the last CTA
+    of each (chunk, head) sums the slabs in (slice, group) order); the
+    (H, units x slices) d_scale partials summed here."""
+    global banded_bwd_launches
+    b, n, c3 = qkv.shape
+    h = scale.shape[0]
+    dev = qkv.device
+    stream = _stream(dev)
+    slices = banded_slices(b, n, h, True, qkv.get_device())
+    units = n // BLK
+    d_qkv = torch.empty_like(qkv)
+    d_band = torch.empty_like(band)
+    ds_parts = torch.empty((h, units * slices), dtype=torch.float32,
+                           device=dev)
+    lib = _banded_library()
+    part = torch.empty((slices * lib.tpat_window_attention_banded_groups(), h,
+                        n, BLK), dtype=torch.float32, device=dev)
+    tickets = _tickets(dev, stream, h * units) if slices > 1 else None
+    err = lib.tpat_window_attention_banded_bwd(
+        qkv.data_ptr(), scale.data_ptr(), band.data_ptr(), d_out.data_ptr(),
+        d_qkv.data_ptr(), d_band.data_ptr(), part.data_ptr(), ds_parts.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, n, h,
+        c3 // 3 // h, slices, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention_banded_bwd kernel launch failed: CUDA error {err}"
+        )
+    banded_bwd_launches += 1
+    return d_qkv, ds_parts.sum(dim=1), d_band
 
 
 def window_attention_bwd(qkv, scale, template, d_out, banded: bool):
