@@ -59,21 +59,23 @@ printing a result:
     losses, every parameter gradient and the tokens kept at each drop
     block;
 11. build: ``tpat_tpu_torch/csrc/window_attention.cu`` and
-    ``window_attention_bwd.cu`` (both on ``window_attention_tc.cuh``) and
-    ``window_attention_banded.cu`` (the bf16 banded form, forward and
-    backward; one nvcc per source of the port, all eight started together),
+    ``window_attention_bwd.cu`` (the f32 FMA kernels),
+    ``window_attention_dense.cu`` (the bf16 dense form) and
+    ``window_attention_banded.cu`` (the bf16 banded form), forward and
+    backward (one nvcc per source of the port, all nine started together),
     with their ptxas reports;
 12. window kernels vs plain at B=2: the dense form (``fused_window_attention``)
     at N in {64, 256} and the banded form at N in {128, 512}, shifts (0,0)
     and (2,0), H=16/D=32 and H=4/D=32, f32 and bf16, plus one case per form
     and dtype at the scale clamp of 100 (f32 atol scaled with the scale) and
     one bf16 case per form whose template has a row with no live entry
-    (uniform p, its query block kept whole by the tensor-core kernels) and
+    (uniform p, its query block kept whole by the tensor-core kernels; at N =
+    256 more live blocks than the dense kernel's shared-memory slots) and
     a banded one with live entries off the diagonal blocks (the banded
     kernels' general loops); the forward and the backward's d_qkv, d_scale
     and d_template / d_band, the sha256 of the kernel outputs, and each
-    case's launches by source (bf16 banded on ``window_attention_banded.cu``
-    alone, the rest on the other two);
+    case's launches by source (bf16 dense on ``window_attention_dense.cu``,
+    bf16 banded on ``window_attention_banded.cu``, f32 on the FMA sources);
 13. pretrain path at full width: ``engine/pretrain.py``'s train step on
     ``mae_vit_base_dec512d8b`` (bf16, b32, mask ratio 0.8, seeded weights),
     a few steps on one fixed batch at the AudioSet grid (target length
@@ -85,9 +87,9 @@ printing a result:
 14. every kernel of the pretrain path vs plain at each recorded B=32
     geometry (the window kernels, B1 and B3 at N = 103 and 52), compared and
     timed with CUDA events in turns, beside the library call; the window
-    kernels also by their device time (``torch.profiler``), and the banded
-    backward run twice more at its geometry, its d_qkv, d_scale and d_band
-    held equal bit for bit;
+    kernels also by their device time (``torch.profiler``), and each window
+    backward (dense and banded) run twice more at its geometry, its d_qkv,
+    d_scale and d_template / d_band held equal bit for bit;
 15. one f32 pretrain step at each grid, the window kernels vs 'xla', from
     the same weights, batch and step generator (the same masks and
     dropout): the loss and every parameter gradient;
@@ -405,8 +407,8 @@ def build_kernels():
     from tpat_tpu_torch.ops import _build
 
     names = ("qkv_attention", "qkv_attention_bwd", "window_attention",
-             "window_attention_bwd", "window_attention_banded", "layernorm",
-             "attn_probe", "ln_matmul")
+             "window_attention_bwd", "window_attention_dense",
+             "window_attention_banded", "layernorm", "attn_probe", "ln_matmul")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
@@ -547,36 +549,33 @@ LN_MATMUL_DESIGN = (
     "issue wgmma m64n256k16 (A from registers, w N-major by descriptor), "
     "waiting per slice; the accumulator leaves through a swizzled shared "
     "buffer and a TMA store. f32 keeps the FMA tiles")
-WINDOW_FWD_BUILD = (
-    "window_attention",
-    "bf16: a live-block kernel, then one CTA per (window unit, head, sample), "
-    "a warp per 16 query rows, q, k and v staged once (cp.async), "
-    "mma.sync m16n8k16 (ldmatrix); cos as split-bf16 hi.hi + hi.lo + lo.hi; "
-    "two sweeps over the live 16 x 16 blocks only (m and l online, the "
-    "backward's stats code; then p normalised in f32, rounded to bf16, "
-    "round(p).v as one bf16 product). f32 keeps the FMA kernel (4 x 4 "
-    "register micro-tiles over f32 tiles)",
-    {"32": ("window_attention_fwd_bf16_kernel", "ILi32E"),
-     "live": ("window_attention_live_kernel",),
-     "fma f32": ("window_attention_fwd_kernelIfLi32E",)})
-WINDOW_BWD_BUILD = (
-    "window_attention_bwd",
-    "bf16: one CTA per (window unit, head, sample), a warp per 16 rows, "
-    "mma.sync m16n8k16 (ldmatrix, movmatrix); cos, dq^ and dk^ as "
-    "split-bf16 hi.hi + hi.lo + lo.hi, dp and dv single bf16 products; "
-    "logits and dp twice per sample (stats sweep, gradient sweep); 16 x 16 "
-    "blocks whose template entries are all -1e30 skipped; per-sample "
-    "d_template and d_scale partials summed in batch order (a live-block "
-    "kernel before, a template-sum kernel after). f32 keeps the FMA rows, "
-    "cols and template kernels",
-    {"32": ("window_attention_bwd_bf16_kernel", "ILi32E"),
-     "live": ("window_attention_live_kernel",),
-     "template sum": ("window_attention_bwd_tmpl_sum_kernel",)})
-WINDOW_FWD_NOTE = (
+WINDOW_NOTE = (
     "ms by CUDA events around each call's wrapper, which at tens of "
     "microseconds a call includes the host's launch rate; device_ms is the "
-    "summed duration of the call's kernels (B5: live map and main; B6: its "
-    "one kernel), torch.profiler")
+    "summed duration of the call's one kernel (torch.profiler)")
+WINDOW_DENSE_BUILD = (
+    "window_attention_dense",
+    "bf16 dense (grids of whole 16-token blocks up to 256), one kernel a "
+    "direction: one CTA per (head, batch slice), a warp per 16-row block of "
+    "the grid, taking the slice's samples in batch order; the live 16 x 16 "
+    "blocks from warp ballots over the template, scanned once per cluster "
+    "of the head's CTAs (as many as one wave holds; each CTA reads the "
+    "others' bits from their shared memory), their compact slots, the first "
+    "32 blocks' template entries in shared memory in the accumulator layout "
+    "(the rest read from L2); a sample's q, k, v (and dO) as N x 32 TMA "
+    "boxes (3-D maps over the packed input, 64-byte swizzle) into one stage "
+    "on an mbarrier, copied out into padded tiles with q and k normalised "
+    "and split (split_row), the stage refilled at once with the next "
+    "sample; mma.sync m16n8k16, cos, dq^ and dk^ split-bf16, exps by "
+    "ex2.approx (__expf); forward m and l online, the first two live "
+    "blocks' product chains side by side and their logits kept for p.v; "
+    "backward m, l, delta and dq^ by query block, then dk^ and dv by key "
+    "block over its live query blocks; d_template per CTA in an L2 slab of "
+    "compact slots, the slabs summed in slice order by the last CTA of each "
+    "head (integer ticket), the dead blocks zeroed by every CTA of the "
+    "head, d_scale one partial a CTA",
+    {"fwd": ("window_attention_dense_fwd_kernel",),
+     "bwd": ("window_attention_dense_bwd_kernel",)})
 WINDOW_BANDED_BUILD = (
     "window_attention_banded",
     "bf16 banded, one kernel a direction: one CTA per (128-token chunk, "
@@ -598,16 +597,16 @@ WINDOW_BANDED_BUILD = (
      "bwd": ("window_attention_banded_bwd_kernel",)})
 
 
-def banded_build() -> dict:
-    """``build_fields`` of ``csrc/window_attention_banded.cu``, with each
-    kernel's shared memory: the static bytes ptxas reports plus the dynamic
-    bytes the launch asks for (``tpat_window_attention_banded_smem``)."""
+def window_build(build, dynamic) -> dict:
+    """``build_fields`` of a Hopper window source (``WINDOW_DENSE_BUILD``,
+    ``WINDOW_BANDED_BUILD``), with each kernel's shared memory: the static
+    bytes ptxas reports plus the dynamic bytes its launch asks for
+    (``dynamic(bwd)``)."""
     from tpat_tpu_torch.ops import _build
-    from tpat_tpu_torch.ops import window_attention as wa
 
-    fields = build_fields(*WINDOW_BANDED_BUILD)
+    fields = build_fields(*build)
     static, entry = {}, None
-    log_text = _build.build(WINDOW_BANDED_BUILD[0]).with_suffix(".log")
+    log_text = _build.build(build[0]).with_suffix(".log")
     for line in log_text.read_text().splitlines():
         if "Compiling entry function '" in line:
             entry = line.split("'")[1]
@@ -615,12 +614,10 @@ def banded_build() -> dict:
             words = line.replace(",", "").split()
             static[entry] = int(words[words.index("smem") - 2])
             entry = None
-    lib = wa._banded_library()
     fields["shared_bytes"] = {}
-    for label, (kernel,) in WINDOW_BANDED_BUILD[2].items():
+    for label, (kernel,) in build[2].items():
         found = [v for e, v in static.items() if kernel in e]
-        dynamic = lib.tpat_window_attention_banded_smem(int(label == "bwd"))
-        fields["shared_bytes"][label] = found[0] + dynamic
+        fields["shared_bytes"][label] = found[0] + dynamic(label == "bwd")
     return fields
 
 
@@ -629,10 +626,10 @@ def banded_build() -> dict:
 WINDOW_BWD_NOTE = (
     "bound_ms is the function's work (each input read once, each output "
     "written once, 10 D FLOPs per live pair), not the kernel's "
-    "instructions: cos, dq^ and dk^ are three bf16 products each, and B5 "
-    "computes cos and dp twice per sample; device_ms is the summed duration "
-    "of the call's kernels (B5: live map, main, template sum; B6: its one "
-    "kernel), torch.profiler")
+    "instructions: cos, dq^ and dk^ are three bf16 products each, and both "
+    "kernels compute cos and dp twice per sample (by query block, then by "
+    "key block) where a block's keys are not its own; device_ms is the "
+    "summed duration of the call's one kernel, torch.profiler")
 
 
 def _close(got, want, atol, rtol) -> float:
@@ -1666,21 +1663,42 @@ def _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
             max(e / top if top else 0.0 for e, top in errs))
 
 
+# the window launch counters by source: window_attention_dense.cu (B5 in
+# bf16), window_attention_banded.cu (B6 in bf16), and the FMA sources
+# window_attention.cu and window_attention_bwd.cu (f32)
+WA_COUNTERS = ("dense_launches", "banded_launches", "dense_bwd_launches",
+               "banded_bwd_launches", "launches", "bwd_launches")
+
+
 def _window_counts(wa) -> tuple:
-    return (wa.launches, wa.bwd_launches, wa.banded_launches,
-            wa.banded_bwd_launches)
+    """(dense fwd, banded fwd, dense bwd, banded bwd, FMA fwd, FMA bwd)."""
+    return tuple(getattr(wa, c) for c in WA_COUNTERS)
 
 
-def _sources_ran(wa, before, banded, dt, what):
+def _zero_window(wa):
+    for c in WA_COUNTERS:
+        setattr(wa, c, 0)
+
+
+def _sources_ran(wa, before, banded, dt, what, n=None):
     """A forward and a backward since ``before`` ran one kernel of each
-    direction of the source their call takes: bf16 banded
-    ``window_attention_banded.cu`` (never the other two), else
-    ``window_attention.cu`` and ``window_attention_bwd.cu``."""
+    direction of the source their call takes (never another): bf16 banded
+    ``window_attention_banded.cu``, bf16 dense ``window_attention_dense.cu``
+    (at a grid it takes), else the FMA sources ``window_attention.cu`` and
+    ``window_attention_bwd.cu``."""
+    from tpat_tpu_torch.ops import window_attention as wa_mod
+
     got = tuple(a - b for a, b in zip(_window_counts(wa), before))
-    want = (0, 0, 1, 1) if banded and dt == torch.bfloat16 else (1, 1, 0, 0)
+    if dt == torch.bfloat16 and banded:
+        want = (0, 1, 0, 1, 0, 0)
+    elif dt == torch.bfloat16 and wa_mod.dense_takes(n):
+        want = (1, 0, 1, 0, 0, 0)
+    else:
+        want = (0, 0, 0, 0, 1, 1)
     if got != want:
-        raise AssertionError(f"{what}: launches (window_attention, _bwd, "
-                             f"_banded fwd, bwd) {got}, expected {want}")
+        raise AssertionError(f"{what}: launches (dense fwd, banded fwd, dense "
+                             f"bwd, banded bwd, FMA fwd, FMA bwd) {got}, "
+                             f"expected {want}")
 
 
 def window_vs_plain() -> dict:
@@ -1704,7 +1722,7 @@ def window_vs_plain() -> dict:
                         before = _window_counts(wa)
                         ef, eb, rb = _compare_window(wa, *args, banded, what,
                                                      digest=digest)
-                        _sources_ran(wa, before, banded, dt, what)
+                        _sources_ran(wa, before, banded, dt, what, n)
                         key = "B6" if banded else "B5"
                         worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
                         worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
@@ -1747,7 +1765,7 @@ def window_vs_plain() -> dict:
         before = _window_counts(wa)
         ef, eb, rb = _compare_window(wa, qkv, scale, tmpl, d_out, banded, what,
                                      digest=digest)
-        _sources_ran(wa, before, banded, torch.bfloat16, what)
+        _sources_ran(wa, before, banded, torch.bfloat16, what, n)
         worst[f"{key} fwd"] = max(worst[f"{key} fwd"], ef)
         worst[f"{key} bwd"] = max(worst[f"{key} bwd"], eb)
         rel[f"{key} {label}"] = rb
@@ -1760,19 +1778,23 @@ def window_vs_plain() -> dict:
     return worst
 
 
-# phase 14's two runs of the banded backward at each of its geometries
+# phase 14's two runs of each window backward at each of its geometries
 WINDOW_REPEATS = {}
 
 
 def _pretrain_counts(qa, wa) -> tuple:
+    """(B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd, FMA): B5 on
+    window_attention_dense.cu, B6 on window_attention_banded.cu, FMA the
+    launches of the f32 sources (none in a bf16 step)."""
     return (qa.launches, qa.bwd_rows_launches, qa.bwd_cols_launches,
-            wa.launches, wa.banded_launches, wa.bwd_launches,
-            wa.banded_bwd_launches)
+            wa.dense_launches, wa.banded_launches, wa.dense_bwd_launches,
+            wa.banded_bwd_launches, wa.launches + wa.bwd_launches)
 
 
-# per-step launches (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd)
-PRETRAIN_STEP_LAUNCHES = {"AudioSet": (12, 12, 12, 0, 16, 0, 16),
-                          "ESC-50": (12, 12, 12, 16, 0, 16, 0)}
+# per-step launches (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd,
+# FMA)
+PRETRAIN_STEP_LAUNCHES = {"AudioSet": (12, 12, 12, 0, 16, 0, 16, 0),
+                          "ESC-50": (12, 12, 12, 16, 0, 16, 0, 0)}
 
 
 @contextlib.contextmanager
@@ -1818,8 +1840,7 @@ def pretrain_path():
         with _recording(qa, calls), _window_recording(wa, calls):
             qa.launches = qa.prefix_launches = 0  # the main path starts here
             qa.bwd_rows_launches = qa.bwd_cols_launches = 0
-            wa.launches = wa.banded_launches = 0
-            wa.bwd_launches = wa.banded_bwd_launches = 0
+            _zero_window(wa)
             total = torch.zeros((), device="cuda")
             for i in range(PRETRAIN_STEPS):
                 c0, i0 = _pretrain_counts(qa, wa), len(calls)
@@ -1831,7 +1852,7 @@ def pretrain_path():
                 if got != PRETRAIN_STEP_LAUNCHES[grid]:
                     raise AssertionError(
                         f"{grid} step {i}: launches (B1, B3 rows, B3 cols, B5 "
-                        f"fwd, B6 fwd, B5 bwd, B6 bwd) {got}, expected "
+                        f"fwd, B6 fwd, B5 bwd, B6 bwd, FMA) {got}, expected "
                         f"{PRETRAIN_STEP_LAUNCHES[grid]}")
                 if walks.setdefault(grid, tuple(calls[i0:])) != tuple(calls[i0:]):
                     raise AssertionError(f"{grid}: steps launched at different "
@@ -1849,7 +1870,7 @@ def pretrain_path():
         log(f"pretrain {grid} grid (target length {tl}, {cfg.num_patches} "
             f"patches, decoder {impls}): losses {[round(v, 5) for v in losses]}; "
             f"launches per step as expected; totals (B1, B3 rows, B3 cols, B5 "
-            f"fwd, B6 fwd, B5 bwd, B6 bwd) {counts[grid]}")
+            f"fwd, B6 fwd, B5 bwd, B6 bwd, FMA) {counts[grid]}")
         step_ms[grid] = pp.time_steps(tl, PRETRAIN_TIMED)
         torch.cuda.empty_cache()
         log(f"pretrain step b{PRETRAIN_BATCH} bf16 {grid} grid: kernels "
@@ -1923,17 +1944,18 @@ def pretrain_kernels_vs_plain(walks) -> tuple:
                 lib, backend = library_ms("window", qkv, h, scale=scale,
                                           template=tmpl, banded=banded,
                                           d_out=d_out)
-                if banded:  # d_band and d_scale are sums: the same bits twice
-                    one = wa.window_attention_bwd(qkv, scale, tmpl, d_out, True)
-                    two = wa.window_attention_bwd(qkv, scale, tmpl, d_out, True)
-                    for label, x, y in zip(("d_qkv", "d_scale", "d_band"),
-                                           one, two):
-                        if not torch.equal(x, y):
-                            raise AssertionError(
-                                f"{name} B={b} N={n}: {label} differs "
-                                "between two runs")
-                    WINDOW_REPEATS[f"B={b} N={n} H={h}"] = (
-                        "d_qkv, d_scale, d_band equal bit for bit in two runs")
+                # d_template (d_band) and d_scale are sums over CTAs: the
+                # same bits twice
+                one = wa.window_attention_bwd(qkv, scale, tmpl, d_out, banded)
+                two = wa.window_attention_bwd(qkv, scale, tmpl, d_out, banded)
+                tname = "d_band" if banded else "d_template"
+                for label, x, y in zip(("d_qkv", "d_scale", tname), one, two):
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            f"{name} B={b} N={n}: {label} differs between "
+                            "two runs")
+                WINDOW_REPEATS[f"{name} B={b} N={n} H={h}"] = (
+                    f"d_qkv, d_scale, {tname} equal bit for bit in two runs")
             bnd = work_bound(window_work(qkv, tmpl, banded, kind == "wbwd"),
                              dt)
         worst[name] = max(worst.get(name, 0.0), err)
@@ -3541,9 +3563,9 @@ PRETRAIN_CUTS = (
 # x kept frequency columns, plus CLS
 PRETRAIN_ENC_N = 1 + int(64 * (1 - 0.7)) * int(8 * (1 - 0.3))
 DEC0_N = 64 * 8 + 1  # the plain decoder over CLS and every patch
-# per-step launches (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd)
+# per-step launches (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd, FMA)
 PRETRAIN_CLI_LAUNCHES = {1: PRETRAIN_STEP_LAUNCHES["AudioSet"],
-                         0: (28, 28, 28, 0, 0, 0, 0)}
+                         0: (28, 28, 28, 0, 0, 0, 0, 0)}
 
 
 def pretrain_corpus(root):
@@ -3654,8 +3676,7 @@ def _pretrain_cli_run(argv, decoder_mode, what):
     with _pretrain_cli_recording(qa, wa, calls, rec):
         qa.launches = qa.prefix_launches = 0  # the main path starts here
         qa.bwd_rows_launches = qa.bwd_cols_launches = 0
-        wa.launches = wa.banded_launches = 0
-        wa.bwd_launches = wa.banded_bwd_launches = 0
+        _zero_window(wa)
         t0 = time.perf_counter()
         losses = cli_pretrain.main(cli_pretrain.get_args_parser().parse_args(argv))
         torch.cuda.synchronize()
@@ -3678,7 +3699,8 @@ def _pretrain_cli_run(argv, decoder_mode, what):
                 raise AssertionError(f"{what}: encoder launch at N = {c[2]}")
             if c[0] in ("fwd", "bwd") and c[5] == 16 and c[2] != DEC0_N:
                 raise AssertionError(f"{what}: decoder launch at N = {c[2]}")
-    summed = tuple(sum(s[1][k] for s in rec["steps"]) for k in range(7))
+    summed = tuple(sum(s[1][k] for s in rec["steps"])
+                   for k in range(len(launches)))
     if summed != launches:
         raise AssertionError(f"{what}: launches {launches}, steps account for "
                              f"{summed}")
@@ -3881,7 +3903,7 @@ def pretrain_cli_path(tmp, ft_corpus, smi):
     grid_err = d32_grid_vs_plain()
     out = os.path.join(tmp, "pre_out")
     runs = {}
-    total = [0] * 7
+    total = [0] * len(PRETRAIN_CLI_LAUNCHES[0])
 
     def run(label, argv, decoder_mode, epochs):
         res = _pretrain_cli_run(argv, decoder_mode, label)
@@ -3890,7 +3912,7 @@ def pretrain_cli_path(tmp, ft_corpus, smi):
                 math.isfinite(e["loss"]) for e in logged):
             raise AssertionError(f"{label}: log {logged}")
         runs[label] = res
-        for k in range(7):
+        for k in range(len(total)):
             total[k] += res[2][k]
         s = _run_summary(res[1])
         log(f"pretrain {label}: epochs {[e['epoch'] for e in logged]} losses "
@@ -3941,7 +3963,7 @@ def pretrain_cli_path(tmp, ft_corpus, smi):
         d32_err[k] = max(d32_err[k], grid_err)
     pretrain_step_f32_dec0()
     log(f"phase 23: {time.perf_counter() - t_phase:.1f} s; launches of its "
-        f"runs (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd) "
+        f"runs (B1, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd, FMA) "
         f"{tuple(total)}; decoder-0 run {dec0[2]}; median step ms "
         + ", ".join(f"{k}: {np.median([s[0] for s in v[1]['steps']]):.1f}"
                     for k, v in runs.items()))
@@ -4222,20 +4244,16 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-WA_COUNTERS = ("launches", "banded_launches", "bwd_launches",
-               "banded_bwd_launches")
-
-
 def _dp_counts(qa, wa) -> tuple:
-    """(B1, B2, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd) launches."""
-    return _counts(qa) + tuple(getattr(wa, c) for c in WA_COUNTERS)
+    """(B1, B2, B3 rows, B3 cols, B5 fwd, B6 fwd, B5 bwd, B6 bwd, FMA fwd,
+    FMA bwd) launches."""
+    return _counts(qa) + _window_counts(wa)
 
 
 def _dp_zero(qa, wa):
     qa.launches = qa.prefix_launches = 0
     qa.bwd_rows_launches = qa.bwd_cols_launches = 0
-    for c in WA_COUNTERS:
-        setattr(wa, c, 0)
+    _zero_window(wa)
 
 
 def dp_cli_rank(task, out, argv):
@@ -4590,7 +4608,7 @@ def dp_other_clis(spawned, argvs, smi) -> tuple:
     (phase 23's flags at decoder 1 and corpus) on two ranks for two epochs
     each: the same parameters on both ranks, rank-0-only files, kernels
     launched on both.  Returns the ranks' summed launches."""
-    total = [0] * 8
+    total = [0] * 10
     for task, files in DP_CLI_FILES.items():
         argv = argvs[task]
         ranks = [dict(r[task], rank=r["rank"]) for r in spawned]
@@ -4612,7 +4630,7 @@ def dp_other_clis(spawned, argvs, smi) -> tuple:
                                      f"launched {r['launches']}")
             total = [a + b for a, b in zip(total, r["launches"])]
         log(f"25.4 {task}: {DP_RANKS} ranks, two epochs: launches per rank "
-            f"(B1, B2, B3 rows, B3 cols, B5, B6, B5 bwd, B6 bwd) "
+            f"(B1, B2, B3 rows, B3 cols, B5, B6, B5 bwd, B6 bwd, FMA, FMA bwd) "
             f"{r0['launches']} and {r1['launches']}; parameters sha256 "
             f"{r0['digest'][:16]} on both; rank 0 made {len(r0['writes'])} "
             f"writes, rank 1 none; run {r0['wall_s']:.1f} s ({smi})")
@@ -4622,7 +4640,7 @@ def dp_other_clis(spawned, argvs, smi) -> tuple:
 
 def data_parallel_path(tmp, paths, walks, ft_launches, ft_summary, smi):
     """Phase 25.  Returns the launches (B1, B2, B3 rows, B3 cols, B5, B6, B5
-    bwd, B6 bwd) of every rank of its runs."""
+    bwd, B6 bwd, FMA, FMA bwd) of every rank of its runs."""
     t0 = time.perf_counter()
     one = {d: dp_engine_run(d, 0, 1) for d in DP_TOL}
     pre_root = os.path.join(tmp, "audioset")
@@ -4647,9 +4665,10 @@ def data_parallel_path(tmp, paths, walks, ft_launches, ft_summary, smi):
     ft = dp_finetune_check(ranks, argvs["finetune"], walks, ft_launches,
                            ft_summary, smi)
     other = dp_other_clis(ranks, argvs, smi)
-    total = tuple(a + b + c for a, b, c in zip(engine + (0,) * 4, ft, other))
+    total = tuple(a + b + c for a, b, c in zip(engine + (0,) * 6, ft, other))
     log(f"phase 25: {time.perf_counter() - t0:.1f} s; launches of every rank "
-        f"(B1, B2, B3 rows, B3 cols, B5, B6, B5 bwd, B6 bwd) {total}")
+        f"(B1, B2, B3 rows, B3 cols, B5, B6, B5 bwd, B6 bwd, FMA, FMA bwd) "
+        f"{total}")
     return total
 
 
@@ -4999,13 +5018,27 @@ def run_phases(tmp):
                  "B6 bwd": dp[7]}
     if min(window_launches.values()) == 0:
         raise AssertionError(f"window kernel launches {window_launches}")
-    if not WINDOW_REPEATS:
-        raise AssertionError("no banded backward was run twice")
+    for key in ("B5", "B6"):
+        if not any(k.startswith(key) for k in WINDOW_REPEATS):
+            raise AssertionError(f"no {key} backward was run twice")
     from tpat_tpu_torch.ops import window_attention as wa
-    banded_fields = banded_build()
-    banded_slices = {f"{d} B={PRETRAIN_BATCH} N=512 H=16": wa.banded_slices(
-        PRETRAIN_BATCH, 512, 16, d == "bwd", torch.cuda.current_device())
-        for d in ("fwd", "bwd")}
+    dev = torch.cuda.current_device()
+    hopper_fields = {
+        "B5": window_build(
+            WINDOW_DENSE_BUILD,
+            lambda bwd: wa._dense_library().tpat_window_attention_dense_smem(
+                256, int(bwd))),
+        "B6": window_build(
+            WINDOW_BANDED_BUILD,
+            lambda bwd: wa._banded_library().tpat_window_attention_banded_smem(
+                int(bwd)))}
+    hopper_slices = {
+        "B5": {f"{d} B={PRETRAIN_BATCH} N=256 H=16": dict(zip(
+            ("slices", "cluster"), wa.dense_slices(
+                PRETRAIN_BATCH, 256, 16, d == "bwd", dev)))
+               for d in ("fwd", "bwd")},
+        "B6": {f"{d} B={PRETRAIN_BATCH} N=512 H=16": wa.banded_slices(
+            PRETRAIN_BATCH, 512, 16, d == "bwd", dev) for d in ("fwd", "bwd")}}
     step = sums[EPOCH_LABELS[3]]
     per_step = "one b128 bf16 hybrid train step at bucket 0.8"
     bwd = "tpat_tpu/ops/pallas_attention.py:366"
@@ -5117,9 +5150,9 @@ def run_phases(tmp):
                **bf16_build("qkv_attention_bwd", "qkv_attention_bwd_cols")),
     ]
     for name, key, grid, replaces in (
-            ("window_attention_fwd", "B5 fwd", "ESC-50",
+            ("window_attention_dense_fwd", "B5 fwd", "ESC-50",
              "tpat_tpu/ops/pallas_window_attention.py:457"),
-            ("window_attention_bwd", "B5 bwd", "ESC-50",
+            ("window_attention_dense_bwd", "B5 bwd", "ESC-50",
              "tpat_tpu/ops/pallas_window_attention.py:491"),
             ("window_attention_banded_fwd", "B6 fwd", "AudioSet",
              "tpat_tpu/ops/pallas_window_attention.py:457"),
@@ -5127,17 +5160,17 @@ def run_phases(tmp):
              "tpat_tpu/ops/pallas_window_attention.py:222")):
         e = pre_sums[grid][key]
         fwd = key.endswith("fwd")
+        kernel = key[:2]
         extra = {"library_backend": sorted(e["backends"]),
                  "dp_launches": window_dp[key], "device_ms": e["device_ms"],
-                 "note": WINDOW_FWD_NOTE if fwd else WINDOW_BWD_NOTE}
-        if key.startswith("B6"):
-            source, fields = "window_attention_banded.cu", banded_fields
-            extra["slices"] = banded_slices
-            if not fwd:
-                extra["same_bits_twice"] = dict(WINDOW_REPEATS)
-        else:
-            build = WINDOW_FWD_BUILD if fwd else WINDOW_BWD_BUILD
-            source, fields = build[0] + ".cu", build_fields(*build)
+                 "note": WINDOW_NOTE if fwd else WINDOW_BWD_NOTE,
+                 "slices": hopper_slices[kernel]}
+        if not fwd:
+            extra["same_bits_twice"] = {
+                k: v for k, v in WINDOW_REPEATS.items() if k.startswith(kernel)}
+        source = ("window_attention_dense.cu" if kernel == "B5"
+                  else "window_attention_banded.cu")
+        fields = hopper_fields[kernel]
         kernels.append(_entry(
             name, source, replaces, window_launches[key],
             max(win_err[key], pre_err[key]), e["ms"], e["plain_ms"],

@@ -1,10 +1,11 @@
 """Two trees' kernels in one call on the card, each tree's own code, in
 turns parent, change, change, parent: phase 19 of ``chip_smoke.py`` (the
-attention probes P1/P2), or with ``--window`` the banded window attention
-B6.
+attention probes P1/P2), or with ``--window`` the window attention B6
+(banded) and B5 (dense).
 
     python3 probe_turns.py <parent tree> [--window] [--out FILE]
     python3 probe_turns.py --phases [--out FILE]
+    python3 probe_turns.py --dense-phases [--out FILE]
 
 The parent tree is a ``git archive`` of the parent commit unpacked under a
 directory that ``.gitignore`` lists (``build/``).  Each turn is one
@@ -15,12 +16,22 @@ a row, and times B1 (``fused_qkv_attention`` without scores and with
 'patch_mean' scores) beside P1 'noscore' and 'full' at B = 128, N = 257 and
 181, in turns.  With ``--window`` a turn holds B6 forward and backward
 against plain at B = 32, N = 512 (the AudioSet grid), H = 16, D = 32, bf16,
-shift (2, 0), times each by CUDA events (the mean of two runs of 20 calls)
+shift (2, 0), and B5's at B = 32, N = 256 (the ESC-50 grid), shifts (2, 0)
+and (0, 0), records the sha256 of each one's outputs, times each by CUDA
+events (the mean of two runs of 20 calls)
 and by its kernels' device time (``torch.profiler``), and times phase 13's
-AudioSet-grid b32 pretrain step through the kernels and through 'xla'
-(``cli.profile_pretrain.time_steps``).  Every turn's record goes into one
-JSON file (default ``build/probe_turns.json``, with ``--window``
-``build/window_turns.json``; ``--out`` names another).
+AudioSet-grid and ESC-50-grid b32 pretrain steps through the kernels and
+through 'xla' (``cli.profile_pretrain.time_steps``).  Every turn's record
+goes into one JSON file (default ``build/probe_turns.json``, with
+``--window`` ``build/window_turns.json``; ``--out`` names another).
+
+``--dense-phases`` looks into this tree's B5 alone (``build/
+window_dense_phases.json``): each kernel's device time by ``torch.profiler``
+and by CUDA events around 20 calls queued behind a 20 ms spin of the card,
+at the (slices, cluster) the library picks and with the cluster forced to
+1, then a copy of ``csrc/window_attention_dense.cu`` with clock64 marks
+after each step of both kernels, built and run at B = 32, N = 256, H = 16,
+whose first thread per CTA gives the cycles of each step.
 
 ``--phases`` looks into this tree's B6 alone (``build/
 window_phases.json``): each kernel's device time by ``torch.profiler`` and
@@ -74,6 +85,41 @@ def turn(tree: str) -> dict:
     return rec
 
 
+def window_calls(cs, wa, torch, feat, shift, banded, gen) -> dict:
+    """One window form at B = 32, H = 16, D = 32, bf16 on a seeded input:
+    kernel vs plain (the forward's max abs err and the backward's, over its
+    outputs), the sha256 of the kernels' outputs (out, d_qkv, d_scale,
+    d_template; the turns draw the same inputs, so one kernel's bits can be
+    held across trees), then each direction's ms by CUDA events (the mean
+    of two runs of 20 calls) and its kernels' device ms
+    (``torch.profiler``)."""
+    import hashlib
+
+    n = feat[0] * feat[1]
+    qkv, scale, tmpl, d_out = cs._window_inputs(
+        32, 16, 32, feat, shift, banded, torch.bfloat16, gen)
+    fwd, bwd = cs._compare_window(wa, qkv, scale, tmpl, d_out, banded,
+                                  f"B=32 N={n} shift={shift}")[:2]
+    rec = {"max_abs_err": {"fwd": fwd, "bwd": bwd}}
+    kern = (wa.fused_window_attention_banded if banded
+            else wa.fused_window_attention)
+    digest = hashlib.sha256()
+    with torch.no_grad():
+        for t in (kern(qkv, scale, tmpl),
+                  *wa.window_attention_bwd(qkv, scale, tmpl, d_out, banded)):
+            digest.update(t.contiguous().cpu().view(torch.uint8).numpy()
+                          .tobytes())
+    rec["sha256"] = digest.hexdigest()
+    calls = {"fwd": lambda: kern(qkv, scale, tmpl),
+             "bwd": lambda: wa.window_attention_bwd(qkv, scale, tmpl, d_out,
+                                                     banded)}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            rec[f"{name}_ms"] = (cs._time_ms(fn) + cs._time_ms(fn)) / 2
+            rec[f"{name}_device_ms"] = cs._device_ms(fn)
+    return rec
+
+
 def window_turn(tree: str) -> dict:
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -86,19 +132,13 @@ def window_turn(tree: str) -> dict:
     rec = {"tree": tree, "card": cs.check_device()}
     cs.build_kernels()  # all of the tree's sources at once
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
-    qkv, scale, band, d_out = cs._window_inputs(
-        32, 16, 32, (64, 8), (2, 0), True, torch.bfloat16, gen)
-    fwd, bwd = cs._compare_window(wa, qkv, scale, band, d_out, True,
-                                  "B6 B=32 N=512")[:2]
-    rec["max_abs_err"] = {"fwd": fwd, "bwd": bwd}
-    calls = {"fwd": lambda: wa.fused_window_attention_banded(qkv, scale, band),
-             "bwd": lambda: wa.window_attention_bwd(qkv, scale, band, d_out,
-                                                     True)}
-    with torch.no_grad():
-        for name, fn in calls.items():
-            rec[f"{name}_ms"] = (cs._time_ms(fn) + cs._time_ms(fn)) / 2
-            rec[f"{name}_device_ms"] = cs._device_ms(fn)
+    # B6 at the top level, as the records of earlier trees have it
+    rec.update(window_calls(cs, wa, torch, (64, 8), (2, 0), True, gen))
+    for shift in ((2, 0), (0, 0)):
+        rec[f"B5 shift {shift}"] = window_calls(cs, wa, torch, (32, 8), shift,
+                                                False, gen)
     rec["step_ms"] = pp.time_steps(1024, cs.PRETRAIN_TIMED)
+    rec["esc50_step_ms"] = pp.time_steps(512, cs.PRETRAIN_TIMED)
     return rec
 
 
@@ -218,7 +258,148 @@ def phases() -> dict:
     return rec
 
 
+# clock64 marks in window_attention_dense.cu: per direction, the anchor of
+# the kernel's start and the anchors after which each step's cycles end
+DENSE_MARKS = {
+    "fwd": ("  Cta<false> x(smem_raw, &full, a, &qkv_map, nullptr);\n", {
+        "constructor (live map scan, slots)":
+            "  Cta<false> x(smem_raw, &full, a, &qkv_map, nullptr);\n",
+        "take (wait, copy-out and split, barriers)":
+            "    x.take(i);\n    uint32_t qh[kD / 16][4], ql[kD / 16][4];\n",
+        "stats sweep": "    for (int r = 0; r < 2; ++r) il[r] = 1.f / mma::quad_sum(l[r]);\n",
+        "p.v, store out": "        x.c, acc, qb * kBlk, x.n, 1.f, lane);\n"}),
+    "bwd": ("  Cta<true> x(smem_raw, &full, a, &qkv_map, &do_map);\n", {
+        "constructor (live map scan, slots)":
+            "  Cta<true> x(smem_raw, &full, a, &qkv_map, &do_map);\n",
+        "zeros, take (wait, copy-out and split, barriers)":
+            "  float ds = 0.f;\n  for (int i = 0; i < x.count; ++i) {\n    x.take(i);\n",
+        "rows: stats sweep": "          t.drow[row] = delta[r];\n        }\n",
+        "rows: dlog, dq^, store dq": "      store_normalised<kD>(dst, stride, dq, t.qhi, t.qlo, t.qfac, qb * kBlk,\n                           n, lane);\n",
+        "barrier": "    __syncthreads();  // every row's stats\n",
+        "keys: dk^, dv, stores": "      mma::store_rows<kD>(dst + 2 * x.c, stride, dv, kb * kBlk, n, 1.f,\n                          lane);\n"}),
+}
+
+
+def instrumented_dense(src: str) -> str:
+    """window_attention_dense.cu with clock64 sums per step of each
+    kernel, written out per CTA by its first thread after the sample loop
+    (the backward's before its ticket)."""
+    src = src.replace(
+        "namespace {\n\nusing mma::bf16;",
+        "__device__ unsigned long long tpat_cycles[2][1024][8];\n"
+        "extern \"C\" int tpat_cycles_read(void* dst) {\n"
+        "  return cudaMemcpyFromSymbol(dst, tpat_cycles, sizeof(tpat_cycles));\n}\n"
+        "namespace {\n\nusing mma::bf16;", 1)
+    for d, (start, anchors) in DENSE_MARKS.items():
+        at = src.index(start)
+        src = (src[:at] + "  unsigned long long acc_[8] = {0};\n"
+               "  unsigned long long last_ = clock64();\n" + src[at:])
+        pos = at
+        for k, anchor in enumerate(anchors.values()):
+            pos = src.index(anchor, pos) + len(anchor)
+            mark = ("    { const unsigned long long t_ = clock64(); "
+                    f"acc_[{k}] += t_ - last_; last_ = t_; }}\n")
+            src = src[:pos] + mark + src[pos:]
+        out = ("  if (threadIdx.x == 0) {\n"
+               "    const int cta = blockIdx.x + gridDim.x * blockIdx.y;\n"
+               f"    if (cta < 1024) for (int k = 0; k < 7; ++k) tpat_cycles[{int(d == 'bwd')}][cta][k] = acc_[k];\n"
+               f"    if (cta < 1024) tpat_cycles[{int(d == 'bwd')}][cta][7] = x.count;\n  }}\n")
+        if d == "fwd":
+            end = src.index("\n  }\n", pos) + len("\n  }\n")
+        else:
+            end = src.index("  // d_scale: the CTA's partial", pos)
+        src = src[:end] + out + src[end:]
+    return src
+
+
+def dense_phases() -> dict:
+    """B5 at B = 32, N = 256, H = 16, shift (2, 0): each kernel's device
+    and queued ms at the library's (slices, cluster) and with the cluster
+    forced to 1 (every CTA scans the whole template); then the cycles per
+    CTA of each step of an instrumented copy (the CTA's samples summed)."""
+    import ctypes
+    import subprocess as sp
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpat_tpu_torch.ops import _build
+    from tpat_tpu_torch.ops import window_attention as wa
+
+    rec = {"card": cs.check_device()}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
+    qkv, scale, tmpl, d_out = cs._window_inputs(
+        32, 16, 32, (32, 8), (2, 0), False, torch.bfloat16, gen)
+    calls = {"fwd": lambda: wa.fused_window_attention(qkv, scale, tmpl),
+             "bwd": lambda: wa.window_attention_bwd(qkv, scale, tmpl, d_out,
+                                                     False)}
+
+    def queued(fn, iters=20):
+        torch.cuda._sleep(int(2e7))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    chosen = wa.dense_slices
+    with torch.no_grad():
+        for cluster in (None, 1):
+            if cluster is not None:
+                wa.dense_slices = lambda *args, c=cluster: (
+                    chosen(*args)[0], c)
+            key = (f"(slices, cluster) {wa.dense_slices(32, 256, 16, False, 0)}"
+                   + ("" if cluster else " (the library's)"))
+            rec[key] = {f"{d}_{m}": f(fn) for d, fn in calls.items()
+                        for m, f in (("device_ms", cs._device_ms),
+                                     ("queued_ms", queued))}
+            print(key, rec[key], flush=True)
+        wa.dense_slices = chosen
+    src = _build.CSRC / "window_attention_dense.cu"
+    path = _build.BUILD_DIR / "window_attention_dense_phases.cu"
+    lib = _build.BUILD_DIR / "libwindow_attention_dense_phases.so"
+    path.write_text(instrumented_dense(src.read_text()))
+    sp.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+            str(lib), str(path)], check=True, capture_output=True)
+    load = _build.load
+    _build.load = lambda name: ctypes.CDLL(str(lib))
+    wa._dense_library.cache_clear()
+    cdll = wa._dense_library()
+    _build.load = load
+    cdll.tpat_cycles_read.argtypes = [ctypes.c_void_p]
+    with torch.no_grad():
+        for d, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            cycles = np.zeros((2, 1024, 8), np.uint64)
+            assert cdll.tpat_cycles_read(cycles.ctypes.data) == 0
+            slices = wa.dense_slices(32, 256, 16, d == "bwd", 0)[0]
+            per = cycles[int(d == "bwd"), :16 * slices].astype(np.float64)
+            names = list(DENSE_MARKS[d][1])
+            rec[f"{d} cycles a CTA"] = dict(zip(names, (
+                round(float(v), 1) for v in per[:, :len(names)].mean(0))))
+            rec[f"{d} samples a CTA"] = float(per[:, 7].mean())
+            print(d, rec[f"{d} cycles a CTA"], flush=True)
+    wa._dense_library.cache_clear()
+    return rec
+
+
 def main():
+    if "--dense-phases" in sys.argv:
+        out = (sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv
+               else os.path.join(HERE, "build", "window_dense_phases.json"))
+        os.chdir(HERE)
+        sys.path.insert(0, HERE)
+        rec = dense_phases()
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"probe_turns: dense phases into {out}")
+        return
     if "--phases" in sys.argv:
         out = (sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv
                else os.path.join(HERE, "build", "window_phases.json"))

@@ -115,17 +115,46 @@ def test_swin_block_forward_and_gradients_match_jax(impl, feat, shift, dim,
     _assert_grads_match(dict(zip(names, grads[:-1])), gp)
 
 
-@pytest.mark.parametrize("dtype,tokens,want", [
-    ("float32", 256, "fused"), ("bfloat16", 256, "fused"),
-    ("bfloat16", 512, "banded"), ("float32", 512, "banded"),
-    ("bfloat16", 448, "fused"), ("float32", 448, "xla"),
-])
-def test_auto_picks_the_jax_formulation(dtype, tokens, want):
+AUTO_CASES = [  # (dtype, tokens, want, heads)
+    ("float32", 256, "fused", 16), ("bfloat16", 256, "fused", 16),
+    ("bfloat16", 512, "banded", 16), ("float32", 512, "banded", 16),
+    ("bfloat16", 448, "fused", 16), ("float32", 448, "xla", 16),
+    ("bfloat16", 256, "xla", 8), ("bfloat16", 512, "xla", 8),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,tokens,want,heads", AUTO_CASES,
+    ids=["-".join(map(str, c[:3])) + ("" if c[3] == 16 else f"-heads{c[3]}")
+         for c in AUTO_CASES])
+def test_auto_picks_the_jax_formulation(dtype, tokens, want, heads):
     """The reference decoder (dim 512, 16 heads): 'auto' resolves as the
-    JAX package's supports / supports_banded do."""
-    dec = ViTConfig(embed_dim=512, num_heads=16, compute_dtype=dtype)
+    JAX package's supports / supports_banded do.  At 8 heads (head_dim 64,
+    which the JAX criterion admits but the port's kernels are not built
+    for) it resolves to 'xla'."""
+    dec = ViTConfig(embed_dim=512, num_heads=heads, compute_dtype=dtype)
     blk = mae.SwinBlock(dec, (tokens // 8, 8), (4, 4), (2, 0), "auto")
     assert blk.impl == want
+
+
+@pytest.mark.parametrize("shift", [(0, 0), (2, 0)])
+def test_auto_at_head_dim_64_matches_jax(shift):
+    """A block at head_dim 64 built with 'auto': the port resolves to 'xla'
+    (no kernel at that head_dim), the JAX block to its fused kernel; the
+    outputs agree within the file's f32 forward tolerance."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 64, 128)).astype(np.float32)
+    jblk, pblk = _blocks("auto", (8, 8), shift, 128, 2)
+    assert pblk.impl == "xla"
+    params = jblk.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x))["params"]
+    params["attn"]["logit_scale"] = jnp.asarray(
+        rng.normal(size=(2,)).astype(np.float32))
+    _block_weights(params, pblk)
+    jout = jblk.apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        out = pblk(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5,
+                               atol=1e-5)
 
 
 # --------------------------------------------------------------------------

@@ -56,8 +56,9 @@ def _check_against_jax(qkv, scale, tmpl, d_out, banded):
     for name, g, w in zip(("d_qkv", "d_scale", "d_template"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
-    assert wa.launches == wa.banded_launches == 0
-    assert wa.bwd_launches == wa.banded_bwd_launches == 0
+    assert wa.launches == wa.dense_launches == wa.banded_launches == 0
+    assert wa.bwd_launches == wa.dense_bwd_launches == 0
+    assert wa.banded_bwd_launches == 0
 
 
 @pytest.mark.parametrize("shift", [(0, 0), (2, 0)])

@@ -1,23 +1,21 @@
-"""The algorithm of the bf16 window-attention forward kernel
-(tpat_tpu_torch/csrc/window_attention.cu, the tensor-core kernel), which
-cannot run here, as a PyTorch model held against the JAX package's
-``fused_window_attention`` (its Pallas kernel in interpret mode, as
-tests/test_window_attention.py runs it).  The banded cases hold the model
-of the kernel bf16 banded calls run, window_attention_banded.cu's
-(tests/test_torch_window_attention_banded.py), against
-``fused_window_attention_banded``.
+"""The algorithm of the bf16 window-attention forward kernels, which cannot
+run here, as PyTorch models held against the JAX package (its Pallas kernel
+in interpret mode, as tests/test_window_attention.py runs it): the dense
+cases hold the model of the kernel bf16 dense calls run,
+window_attention_dense.cu's (tests/test_torch_window_attention_dense.py),
+against ``fused_window_attention``; the banded cases the model of
+window_attention_banded.cu's (tests/test_torch_window_attention_banded.py)
+against ``fused_window_attention_banded``.
 
-The model follows the kernel step by step: per (sample, head, window unit)
-the live map of 16 x 16 template blocks, q and k normalised in f32 and split
-into hi = bf16(x^) and lo = bf16(x^ - hi), cos as the three bf16 products
-hi.hi + hi.lo + lo.hi (f32 sums of exact products), then two sweeps over the
-live key blocks of each query block: m and l online, and p = exp(s - m) / l
-normalised in f32 before it is rounded to bf16, out = round(p) . v.  The
-helpers and inputs are the backward model's
-(tests/test_torch_window_attention_grad.py); the tolerance is the chip
-check's bf16 forward limit: the output within 2e-2 of its largest |entry|."""
-
-import math
+Both models take, per (sample, head, window unit), the live map of 16 x 16
+template blocks, q and k normalised in f32 and split into hi = bf16(x^) and
+lo = bf16(x^ - hi), cos as the three bf16 products hi.hi + hi.lo + lo.hi
+(f32 sums of exact products), then m and l online over the live key blocks
+of each query block, and p = exp(s - m) / l normalised in f32 before it is
+rounded to bf16, out = round(p) . v.  The helpers and inputs are the
+backward tests' (tests/test_torch_window_attention_grad.py); the tolerance
+is the chip check's bf16 forward limit: the output within 2e-2 of its
+largest |entry|."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,101 +23,23 @@ import pytest
 import torch
 
 from tests.test_torch_window_attention_grad import (
-    BLK, CHUNK, _bf16, _blocks, _inputs, _live_map, _normalise, _split, _stats,
+    CHUNK, _bf16, _inputs, _live_map, _normalise, _split, _stats,
 )
 from tpat_tpu.ops import pallas_window_attention as jpwa
 
 FWD_BF16_REL = 2e-2
 
 
-def _unit(q, k, v, tm, scale, live):
-    """One CTA: the unit's W output rows (f32, before the final rounding)
-    and the row statistics m and l (rows padded to 16 nb)."""
-    w, d = q.shape
-    nb = live.shape[0]
-    r = nb * BLK
-
-    def pad(x):
-        return torch.cat([x, x.new_zeros(r - w, *x.shape[1:])])
-
-    q, k, v = (pad(x) for x in (q, k, v))
-    tm = torch.nn.functional.pad(tm, (0, r - w, 0, r - w))
-    ok = torch.zeros(r, r, dtype=torch.bool)
-    ok[:w, :w] = True
-    qh, ql = _split(_normalise(q)[0])
-    kh, kl = _split(_normalise(k)[0])
-    blk = _blocks(nb)
-
-    def logits(rows, keys):
-        s = qh[rows] @ kh[keys].T + qh[rows] @ kl[keys].T + ql[rows] @ kh[keys].T
-        return torch.where(ok[rows, keys], s * scale + tm[rows, keys], -math.inf)
-
-    # a. m and l online, query block by query block
-    m = torch.full((r,), -math.inf)
-    l = torch.zeros(r)
-    for qb in range(nb):
-        rows = blk[qb]
-        for kb in range(nb):
-            if live[qb, kb]:
-                lg = logits(rows, blk[kb])
-                m_new = torch.maximum(m[rows], lg.amax(dim=1))
-                alpha = torch.where(m_new == -math.inf, 1.0,
-                                    torch.exp(m[rows] - m_new))
-                e = torch.where(lg == -math.inf, 0.0,
-                                torch.exp(lg - m_new[:, None]))
-                l[rows] = l[rows] * alpha + e.sum(dim=1)
-                m[rows] = m_new
-
-    # b. out = round(p) . v, p normalised before it is rounded
-    inv = 1.0 / l
-    out = torch.zeros(r, d)
-    for qb in range(nb):
-        rows = blk[qb]
-        for kb in range(nb):
-            if live[qb, kb]:
-                keys = blk[kb]
-                p = torch.where(ok[rows, keys], torch.exp(
-                    logits(rows, keys) - m[rows, None]) * inv[rows, None], 0.0)
-                out[rows] += _bf16(p) @ v[keys]
-    return out[:w], m[:w], l[:w]
-
-
-def kernel_model(qkv, scale, tmpl, banded, skip=True):
-    """(out bf16, m, l) as the kernel computes them, m and l (B, H, N); with
-    ``skip=False`` every block is treated as live."""
-    b, n, c3 = qkv.shape
-    h = scale.shape[0]
-    d = c3 // 3 // h
-    w = CHUNK if banded else n
-    q, k, v = (t.float().reshape(b, n, h, d) for t in qkv.chunk(3, dim=-1))
-    out = torch.zeros(b, n, h, d)
-    m = torch.zeros(b, h, n)
-    l = torch.zeros(b, h, n)
-    for hh in range(h):
-        for u in range(n // w):
-            rows = slice(u * w, (u + 1) * w)
-            tm = tmpl[hh, rows]
-            live = _live_map(tm)
-            if not skip:
-                live = torch.ones_like(live)
-            for bb in range(b):
-                o, mu, lu = _unit(q[bb, rows, hh], k[bb, rows, hh],
-                                  v[bb, rows, hh], tm, scale[hh], live)
-                out[bb, rows, hh] = o
-                m[bb, hh, rows] = mu
-                l[bb, hh, rows] = lu
-    return out.reshape(b, n, h * d).to(torch.bfloat16), m, l
-
-
 def model(qkv, scale, tmpl, banded, skip=True):
-    """(out, m, l) of the kernel a call runs: the dense form's here; the
-    banded form's is window_attention_banded.cu's
-    (tests/test_torch_window_attention_banded.py), which bf16 banded calls
-    run."""
+    """(out, m, l) of the kernel a bf16 call runs: window_attention_dense
+    .cu's (tests/test_torch_window_attention_dense.py) or
+    window_attention_banded.cu's (tests/test_torch_window_attention_banded
+    .py)."""
     if banded:
         from tests.test_torch_window_attention_banded import forward_model
         return forward_model(qkv, scale, tmpl, skip=skip)
-    return kernel_model(qkv, scale, tmpl, banded, skip)
+    from tests.test_torch_window_attention_dense import forward_model
+    return forward_model(qkv, scale, tmpl, skip=skip)
 
 
 def _jax_forward(qkv, scale, tmpl, banded):

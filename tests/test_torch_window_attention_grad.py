@@ -1,21 +1,17 @@
-"""The algorithm of the bf16 window-attention backward kernels
-(tpat_tpu_torch/csrc/window_attention_bwd.cu), which cannot run here, as a
-PyTorch model held against ``jax.vjp`` of the JAX package's
-``fused_window_attention`` (its Pallas kernels in interpret mode, as
-tests/test_window_attention.py runs them).  The banded cases hold the
-model of the kernel bf16 banded calls run, window_attention_banded.cu's
-(tests/test_torch_window_attention_banded.py), against ``jax.vjp`` of
-``fused_window_attention_banded``; this file's helpers are that model's.
-
-The model follows the kernels step by step: per (sample, head, window
-unit) the live map of 16 x 16 blocks, q and k normalised in f32 and split
-into hi = bf16(x^) and lo = bf16(x^ - hi), cos, dq^ and dk^ as the three
-bf16 products hi.hi + hi.lo + lo.hi (f32 sums of exact products), dp and dv
-as single bf16 products, the stats sweep (m, l and D_run online over the
-live key blocks) and then the gradient sweep (key block by key block, the
-query blocks in the rotation the kernel's warps take), the per-sample
-d_template and d_scale partials summed in batch order.  Inputs are bf16,
-made with numpy from a seed; the tolerance is the chip check's
+"""The algorithm of the bf16 window-attention backward kernels, which cannot
+run here, as PyTorch models held against ``jax.vjp`` of the JAX package
+(its Pallas kernels in interpret mode, as tests/test_window_attention.py
+runs them): the dense cases hold the model of the kernel bf16 dense calls
+run, window_attention_dense.cu's
+(tests/test_torch_window_attention_dense.py), against
+``fused_window_attention``; the banded cases the model of
+window_attention_banded.cu's (tests/test_torch_window_attention_banded.py)
+against ``fused_window_attention_banded``.  This file's helpers are both
+models': the live map of 16 x 16 blocks by the block rule, q and k
+normalised in f32 and split into hi = bf16(x^) and lo = bf16(x^ - hi), and
+the stats sweep (m, l and D_run online over the live key blocks), which
+both directions of both kernels share.  Inputs are bf16, made with numpy
+from a seed; the tolerance is the chip check's
 (``chip_smoke.GRAD_BF16_REL``): each output within 2e-2 of its largest
 |entry|."""
 
@@ -98,100 +94,6 @@ def _stats(qh, ql, kh, kl, do, v, tm, ok, scale, live):
     return m, l, d_run
 
 
-def _unit(q, k, v, do, tm, scale, live):
-    """One CTA: (dq, dk, dv) of the unit's W rows (f32, before the final
-    rounding), its dlog partial (W, W) and its d_scale partial."""
-    w, d = q.shape
-    nb = live.shape[0]
-    r = nb * BLK
-
-    def pad(x):
-        return torch.cat([x, x.new_zeros(r - w, *x.shape[1:])])
-
-    q, k, v, do = (pad(x) for x in (q, k, v, do))
-    tm = torch.nn.functional.pad(tm, (0, r - w, 0, r - w))
-    ok = torch.zeros(r, r, dtype=torch.bool)
-    ok[:w, :w] = True
-    qn, qf = _normalise(q)
-    kn, kf = _normalise(k)
-    qh, ql = _split(qn)
-    kh, kl = _split(kn)
-    blk = _blocks(nb)
-
-    # a. stats sweep, query block by query block
-    m, l, d_run = _stats(qh, ql, kh, kl, do, v, tm, ok, scale, live)
-    inv = 1.0 / l
-    delta = d_run / l
-
-    # b. gradient sweep: at step t the warp of key block kb takes query
-    # block (kb + t) mod nb
-    dq = torch.zeros(r, d)
-    dk = torch.zeros(r, d)
-    dv = torch.zeros(r, d)
-    part = torch.zeros(r, r)
-    ds = torch.zeros(())
-    for t in range(nb):
-        for kb in range(nb):
-            qb = (kb + t) % nb
-            if not live[qb, kb]:
-                continue
-            rows, keys = blk[qb], blk[kb]
-            s = kh[keys] @ qh[rows].T + kh[keys] @ ql[rows].T + kl[keys] @ qh[rows].T
-            dp = v[keys] @ do[rows].T
-            okt = ok[rows, keys].T
-            p = torch.where(okt, torch.exp(s * scale + tm[rows, keys].T
-                                           - m[rows]) * inv[rows], 0.0)
-            dl = torch.where(okt, p * (dp - delta[rows]), 0.0)
-            part[rows, keys] = dl.T
-            ds = ds + (dl * s).sum()
-            gh, gl = _split(dl * scale)
-            dv[keys] += _bf16(p) @ do[rows]
-            dk[keys] += gh @ qh[rows] + gh @ ql[rows] + gl @ qh[rows]
-            dq[rows] += gh.T @ kh[keys] + gh.T @ kl[keys] + gl.T @ kh[keys]
-
-    def vjp(g, xh, xl, f):  # the F.normalize VJP
-        x = xh + xl
-        return (g - x * (x * g).sum(-1, keepdim=True)) * f
-
-    return (vjp(dq, qh, ql, qf)[:w], vjp(dk, kh, kl, kf)[:w], dv[:w],
-            part[:w, :w], ds)
-
-
-def kernel_model(qkv, scale, tmpl, d_out, banded, skip=True):
-    """(d_qkv bf16, d_scale, d_template) as the kernels compute them; with
-    ``skip=False`` every block is treated as live."""
-    b, n, c3 = qkv.shape
-    h = scale.shape[0]
-    d = c3 // 3 // h
-    w = CHUNK if banded else n
-    units = n // CHUNK if banded else 1
-    q, k, v = (t.float().reshape(b, n, h, d) for t in qkv.chunk(3, dim=-1))
-    do = d_out.float().reshape(b, n, h, d)
-    grads = [torch.zeros(b, n, h, d) for _ in range(3)]
-    parts = torch.zeros(b, h, n, w)
-    ds_parts = torch.zeros(h, b * units)
-    for hh in range(h):
-        for u in range(units):
-            rows = slice(u * w, (u + 1) * w)
-            tm = tmpl[hh, rows]
-            live = _live_map(tm)
-            if not skip:
-                live = torch.ones_like(live)
-            for bb in range(b):
-                dq, dk, dv, part, ds = _unit(
-                    q[bb, rows, hh], k[bb, rows, hh], v[bb, rows, hh],
-                    do[bb, rows, hh], tm, scale[hh], live)
-                for g, x in zip(grads, (dq, dk, dv)):
-                    g[bb, rows, hh] = x
-                parts[bb, hh, rows] = part
-                ds_parts[hh, bb * units + u] = ds
-    d_template = torch.zeros(h, n, w)
-    for bb in range(b):  # the template-sum kernel's batch order
-        d_template += parts[bb]
-    d_qkv = torch.cat([g.reshape(b, n, h * d) for g in grads], dim=-1)
-    return d_qkv.to(torch.bfloat16), ds_parts.sum(dim=1), d_template
-
-
 def _inputs(feat, shift, banded, seed, scale_value=None):
     """bf16 qkv and d_out, f32 scale and template of one decoder block at
     B = 2: the template of a random meta-MLP bias with the shift's region
@@ -225,15 +127,17 @@ def _jax_vjp(qkv, scale, tmpl, d_out, banded):
 
 
 def model(qkv, scale, tmpl, d_out, banded, skip=True, diagonal=None):
-    """(d_qkv, d_scale, d_template) of the kernels a call runs: the dense
-    form's here; the banded form's are window_attention_banded.cu's
+    """(d_qkv, d_scale, d_template) of the kernel a bf16 call runs:
+    window_attention_dense.cu's (tests/test_torch_window_attention_dense.py)
+    or window_attention_banded.cu's
     (tests/test_torch_window_attention_banded.py, ``diagonal`` its choice of
-    loop), which bf16 banded calls run."""
+    loop)."""
     if banded:
         from tests.test_torch_window_attention_banded import backward_model
         return backward_model(qkv, scale, tmpl, d_out, skip=skip,
                               diagonal=diagonal)
-    return kernel_model(qkv, scale, tmpl, d_out, banded, skip)
+    from tests.test_torch_window_attention_dense import backward_model
+    return backward_model(qkv, scale, tmpl, d_out, skip=skip)
 
 
 def _check(feat, shift, banded, seed, scale_value=None):
@@ -278,7 +182,8 @@ def test_skipping_dead_blocks_keeps_the_bits(banded):
     windows span two 16-token blocks at most, a chunk's exactly one)."""
     args = _inputs((16, 8), (2, 0), banded, seed=31)
     # the banded kernel's general loop both times (every block is live
-    # without the skip, so its diagonal loop does not apply)
+    # without the skip, so its diagonal loop does not apply; the dense
+    # kernel has no other loop)
     skip = model(*args, banded, diagonal=False)
     full = model(*args, banded, skip=False, diagonal=False)
     for a, b in zip(skip, full):

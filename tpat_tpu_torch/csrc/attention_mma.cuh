@@ -1,7 +1,7 @@
 // Tensor-core pieces of the bf16 attention kernels (qkv_attention.cu, B1/B2,
-// qkv_attention_bwd.cu, B3, window_attention.cu and window_attention_bwd.cu,
-// the B5/B6 forward and backward; attn_probe.cu, the probes P1/P2, takes only
-// column_sums4, as B1's wgmma body does):
+// qkv_attention_bwd.cu, B3, window_attention_dense.cu and
+// window_attention_banded.cu, the B5/B6 forward and backward; attn_probe.cu,
+// the probes P1/P2, takes only column_sums4, as B1's wgmma body does):
 // 16-byte cp.async tile copies, ldmatrix fragment loads, mma.sync m16n8k16
 // bf16 products with f32 accumulation, movmatrix transposes of fragments,
 // and the quad reductions over the accumulator layout.

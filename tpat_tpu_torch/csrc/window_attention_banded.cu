@@ -5,7 +5,9 @@
 // _banded_impl runs it and ::_banded_bwd_kernel (via _banded_bwd_impl): the
 // TPU kernels that every decoder block of an MAE pretrain step at the
 // AudioSet grid (N = 512, tokens in window-major order) runs.  The dense
-// form and f32 stay in window_attention.cu and window_attention_bwd.cu.
+// form in bf16 is window_attention_dense.cu's; f32 (either form) stays on
+// the FMA kernels of window_attention.cu and window_attention_bwd.cu.  What
+// the two Hopper sources share is window_attention_hopper.cuh's.
 //
 // What it computes, per (sample b, head h, 128-token chunk u), with q, k, v
 // and dO one head's D = 32 values of the chunk's rows, the (H,) f32 scales
@@ -111,6 +113,7 @@
 #include "attention_wgmma.cuh"
 #include "hopper_tma_wgmma.cuh"
 #include "window_attention_common.cuh"
+#include "window_attention_hopper.cuh"
 #include "window_attention_tc.cuh"
 #include "window_attention_tc_grad.cuh"
 
@@ -184,25 +187,15 @@ struct Tiles {
   }
 };
 
-// Byte offset of 16-byte chunk c of row r in a box written by TMA under
-// CU_TENSOR_MAP_SWIZZLE_64B (64-byte rows, the box 512-byte aligned).
-__device__ __forceinline__ uint32_t swizzle64(int r, int c) {
-  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-// Sample j of the CTA's run into `stage`, completing on `bar`: one thread.
+// Sample b of the CTA's run into `stage`, completing on `bar`: one thread.
 template <bool kBwd>
 __device__ __forceinline__ void load_sample(const CUtensorMap* qkv_map,
                                             const CUtensorMap* do_map,
                                             unsigned char* stage,
                                             uint64_t* bar, int b, int row0,
                                             int h, int c) {
-  hopper::mbar_arrive_expect_tx(bar, Smem<kBwd>::kStage);
-#pragma unroll
-  for (int t = 0; t < 3; ++t)
-    wgmma::tma_load_3d(stage + t * kBox, qkv_map, bar, t * c + h * kD, row0,
-                       b);
-  if (kBwd) wgmma::tma_load_3d(stage + 3 * kBox, do_map, bar, h * kD, row0, b);
+  load_boxes(stage, qkv_map, kBwd ? do_map : nullptr, bar, kBox, b, row0, h,
+             c);
 }
 
 // Warp qb's 16 band rows into shared memory (row stride kTmLd), and its
@@ -222,17 +215,11 @@ __device__ __forceinline__ unsigned load_band(float* tm, const float* src,
 #pragma unroll
   for (int r = 0; r < kBlk; ++r) {
     *reinterpret_cast<float4*>(tm + (qb * kBlk + r) * kTmLd + 4 * lane) = t[r];
-    const unsigned bal = __ballot_sync(
-        kFull, t[r].x > kDead || t[r].y > kDead || t[r].z > kDead ||
-                   t[r].w > kDead);
+    const unsigned bal = row_ballot(t[r]);
     any |= bal;
     dead_row |= bal == 0;
   }
-  unsigned bits = 0;
-#pragma unroll
-  for (int kb = 0; kb < kNb; ++kb)
-    if (dead_row || ((any >> (4 * kb)) & 0xfu) != 0) bits |= 1u << kb;
-  return bits;
+  return dead_row ? (1u << kNb) - 1 : span_blocks(any);
 }
 
 // The band slice of the CTA's (chunk, head) in shared memory, rows padded
@@ -404,14 +391,9 @@ struct Cta {
   Band band;
   Tiles t;
 
-  static __device__ unsigned char* aligned_base(unsigned char* smem_raw) {
-    const uint32_t raw = hopper::smem_addr(smem_raw);
-    return smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  }
-
   __device__ Cta(unsigned char* smem_raw, uint64_t* bars, const Args& a,
                  const CUtensorMap* qm, const CUtensorMap* dm)
-      : smem(aligned_base(smem_raw)),
+      : smem(aligned_1024(smem_raw)),
         full(bars),
         qkv_map(qm),
         do_map(dm),
@@ -761,7 +743,6 @@ __global__ void __launch_bounds__(kThreadsB, 1)
   int* flag = reinterpret_cast<int*>(red + kThreadsB / 32);
   ds = warp_sum(ds);
   if (lane == 0) red[x.warp] = ds;
-  __threadfence();  // the slabs before the ticket
   __syncthreads();
   const int units = a.n / kW;
   if (threadIdx.x == 0) {
@@ -769,16 +750,11 @@ __global__ void __launch_bounds__(kThreadsB, 1)
     for (int v = 0; v < kThreadsB / 32; ++v) sum += red[v];
     a.ds_part[(static_cast<size_t>(x.h) * units + x.unit) * a.slices +
               x.slice] = sum;
-    *flag = a.slices == 1 ||
-            atomicAdd(&a.tickets[x.h * units + x.unit], 1) == a.slices - 1;
   }
-  __syncthreads();
-  if (!*flag) return;
+  if (!last_cta(a.tickets + x.h * units + x.unit, a.slices, flag)) return;
   // the last CTA of (chunk, head): d_band = the slabs summed in (slice,
   // group) order on the live blocks, 0 on the others; warp w takes query
   // block w % 8 and key blocks 4 (w / 8) .. + 3
-  __threadfence();
-  if (threadIdx.x == 0 && a.slices > 1) a.tickets[x.h * units + x.unit] = 0;
   const int qb = x.warp % kNb;
   const unsigned qlive = live[qb];
   const size_t rows_qb = static_cast<size_t>(x.h) * a.n + x.row0 + qb * kBlk;
@@ -809,23 +785,11 @@ __global__ void __launch_bounds__(kThreadsB, 1)
   }
 }
 
-// The tensor map of a bf16 (batch, n, cols) tensor at `base` (16-byte
-// aligned, cols % 8 == 0) in boxes of one head's 32 columns x one chunk's
-// 128 rows of one sample, with the 64-byte swizzle.
+// The tensor map of a bf16 (batch, n, cols) tensor in boxes of one head's
+// 32 columns x one chunk's 128 rows of one sample.
 cudaError_t chunk_map(CUtensorMap* map, const void* base, uint64_t batch,
                       uint64_t n, uint64_t cols) {
-  const hopper::EncodeTiled encode = hopper::encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {cols, n, batch};
-  const cuuint64_t strides[2] = {cols * sizeof(bf16), n * cols * sizeof(bf16)};
-  const cuuint32_t box[3] = {kD, kW, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return head_box_map(map, base, batch, n, cols, kW);
 }
 
 bool aligned(const void* p) {

@@ -1,15 +1,18 @@
-// Device helpers shared by window_attention.cu (forward) and
-// window_attention_bwd.cu (backward): typed loads and stores, staging a
-// 64-row tile of one head's slice of the packed qkv into shared memory,
-// the cosine normalisation, the 64 x 64 tile product and the logit.
+// Device helpers shared by the window-attention sources: typed loads and
+// stores, staging a 64-row tile of one head's slice of the packed qkv into
+// shared memory, the cosine normalisation, the 64 x 64 tile product and the
+// logit, and which dense grids the Hopper source takes.
 //
 // Two families of kernels compute the logits, each with one code:
-// - the f32 FMA kernels (f32, and bf16 at a dense grid over 256 tokens,
-//   which no model path runs): the normalisation and tile_dot below, the
-//   same f32 FMA chain over d in order, then logit();
-// - the bf16 tensor-core kernels: window_attention_tc.cuh's split_row and
-//   split_nt (cos as three bf16 products hi.hi + hi.lo + lo.hi of the
-//   normalised rows), then logit().
+// - the f32 FMA kernels of window_attention.cu (forward) and
+//   window_attention_bwd.cu (backward): f32 in either form, and bf16 at a
+//   dense grid that window_attention_dense.cu does not take, which no model
+//   path runs; the normalisation and tile_dot below, the same f32 FMA chain
+//   over d in order, then logit();
+// - the bf16 tensor-core kernels of window_attention_dense.cu (dense) and
+//   window_attention_banded.cu (banded): window_attention_tc.cuh's
+//   split_row and split_nt (cos as three bf16 products hi.hi + hi.lo +
+//   lo.hi of the normalised rows), then logit().
 // Within a family the forward and the backward kernels get the same bits
 // for a logit of the same operand order, and in the tensor-core family the
 // backward's stats sweep gets the forward's row max and sum (online_block).
@@ -149,6 +152,13 @@ __host__ __device__ __forceinline__ int key_begin(int row, int banded) {
 
 __host__ __device__ __forceinline__ int window_keys(int n, int banded) {
   return banded ? kChunk : n;
+}
+
+// Whether window_attention_dense.cu takes a bf16 dense grid of n tokens:
+// whole 16-token blocks, at most 256 (its CTA holds the grid); the FMA
+// kernels take the rest.
+__host__ __device__ __forceinline__ bool dense_takes(int n) {
+  return n >= 16 && n <= 256 && n % 16 == 0;
 }
 
 }  // namespace window_attention

@@ -1,5 +1,5 @@
 // The gradient pieces of the bf16 window-attention backward kernels, shared
-// by window_attention_bwd.cu (the dense form) and window_attention_banded.cu
+// by window_attention_dense.cu (the dense form) and window_attention_banded.cu
 // (the banded form): the split-bf16 product into a D-wide accumulator and
 // the F.normalize VJP of a warp's 16 rows on the way out.
 

@@ -336,10 +336,13 @@ class SwinBlock(nn.Module):
         itemsize = torch.empty((), dtype=dt).element_size()
         impl = attn_impl
         if impl == "auto":
-            if wa.supports(heads, dim // heads, tokens, itemsize):
+            # JAX's layout criterion, and a head_dim the kernels are built
+            # for (a call by name at another head_dim raises on CUDA)
+            kernels = dim // heads in wa.HEAD_DIMS
+            if kernels and wa.supports(heads, dim // heads, tokens, itemsize):
                 impl = "fused"
-            elif wa.supports_banded(heads, dim // heads, tokens,
-                                    window_tokens, itemsize):
+            elif kernels and wa.supports_banded(heads, dim // heads, tokens,
+                                                window_tokens, itemsize):
                 impl = "banded"
             else:
                 impl = "xla"

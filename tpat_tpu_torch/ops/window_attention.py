@@ -37,21 +37,26 @@ summed over the batch, as the JAX custom VJPs do:
   that loop over the slice's samples on a TMA stage each, the band and its
   live 16 x 16 blocks in shared memory, d_band and d_scale summed in the
   CTAs in batch order (``banded_slices`` picks the slices).  The dense form
-  in bf16 (a grid of up to 256 tokens) runs the tensor-core kernels of
-  ``csrc/window_attention.cu`` and ``csrc/window_attention_bwd.cu`` (a
-  live-block map, then one CTA per (grid, head, sample); the backward's
-  per-sample d_template partials summed by a third kernel).  Both bf16
-  designs take split-bf16 products where the TPU kernel's operands are f32
-  and skip the blocks that are all -1e30.  f32 (either form) and bf16 at a
-  larger dense grid keep the exact FMA kernels of those two sources;
+  in bf16 at a grid of whole 16-token blocks up to 256 tokens (every
+  decoder block at the ESC-50 and SPC2 grids) runs
+  ``csrc/window_attention_dense.cu``: one kernel a direction, one CTA per
+  (head, batch slice) that loops over the slice's samples on a TMA stage,
+  the template's live 16 x 16 blocks (found with warp ballots) in shared
+  memory, d_template and d_scale summed in the CTAs in batch order
+  (``dense_slices`` picks the slices).  Both take split-bf16 products where
+  the TPU kernel's operands are f32 and skip the blocks that are all -1e30.
+  f32 (either form) and bf16 at another dense grid keep the exact FMA
+  kernels of ``csrc/window_attention.cu`` and ``csrc/window_attention_bwd.cu``;
 - on a CPU tensor they run the plain versions beside them.  That is the
   only case the plain versions serve: nothing falls back from the device.
 
-Launch counters (kernel launches, never plain calls), by source:
-``launches`` and ``bwd_launches`` count ``window_attention.cu`` and
-``window_attention_bwd.cu`` (the dense form, and f32 banded);
+Launch counters (kernel launches, never plain calls), by source, one per
+call: ``launches`` and ``bwd_launches`` count the FMA sources
+``window_attention.cu`` and ``window_attention_bwd.cu``;
+``dense_launches`` and ``dense_bwd_launches`` count
+``window_attention_dense.cu``'s forward and backward;
 ``banded_launches`` and ``banded_bwd_launches`` count
-``window_attention_banded.cu``'s forward and backward.  One per call.
+``window_attention_banded.cu``'s.
 
 The layout arithmetic ``supports`` / ``supports_banded`` / ``_batch_group``
 is the JAX module's TPU VMEM criterion, kept verbatim so that a model's
@@ -79,8 +84,10 @@ HEAD_DIMS = (32,)  # the kernels' instantiations: the MAE decoder's 512 / 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+dense_launches = 0
 banded_launches = 0
 bwd_launches = 0
+dense_bwd_launches = 0
 banded_bwd_launches = 0
 
 
@@ -402,10 +409,8 @@ def fused_window_attention_banded_bwd_plain(qkv, scale, band, d_out):
 def _library() -> ctypes.CDLL:
     lib = _build.load("window_attention")
     fn = lib.tpat_window_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.tpat_window_attention_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 4
-    lib.tpat_window_attention_fwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -415,10 +420,28 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.tpat_window_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.tpat_window_attention_bwd_partials.argtypes = [ctypes.c_int] * 4
+    lib.tpat_window_attention_bwd_partials.argtypes = [ctypes.c_int] * 2
     lib.tpat_window_attention_bwd_partials.restype = ctypes.c_int
-    lib.tpat_window_attention_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.tpat_window_attention_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
     lib.tpat_window_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _dense_library() -> ctypes.CDLL:
+    lib = _build.load("window_attention_dense")
+    fn = lib.tpat_window_attention_dense_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.tpat_window_attention_dense_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.tpat_window_attention_dense_slices.argtypes = [ctypes.c_int] * 4
+    lib.tpat_window_attention_dense_slices.restype = ctypes.c_int
+    lib.tpat_window_attention_dense_cluster.argtypes = [ctypes.c_int] * 4
+    lib.tpat_window_attention_dense_cluster.restype = ctypes.c_int
+    lib.tpat_window_attention_dense_smem.argtypes = [ctypes.c_int] * 2
+    lib.tpat_window_attention_dense_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -446,6 +469,20 @@ def _hopper_banded(qkv: torch.Tensor, banded: bool) -> bool:
     return banded and qkv.dtype == torch.bfloat16
 
 
+def dense_takes(n: int) -> bool:
+    """Whether ``csrc/window_attention_dense.cu`` takes a bf16 dense grid of
+    n tokens: whole 16-token blocks, at most 256 (its CTA holds the grid;
+    the C sources' ``dense_takes``)."""
+    return 16 <= n <= 256 and n % 16 == 0
+
+
+def _hopper_dense(qkv: torch.Tensor, banded: bool) -> bool:
+    """Whether a call runs ``csrc/window_attention_dense.cu``: the dense
+    form in bf16 at a grid it takes."""
+    return (not banded and qkv.dtype == torch.bfloat16
+            and dense_takes(qkv.shape[1]))
+
+
 @functools.cache
 def banded_slices(batch: int, n: int, num_heads: int, bwd: bool,
                   device: int) -> int:
@@ -461,12 +498,33 @@ def banded_slices(batch: int, n: int, num_heads: int, bwd: bool,
     return s
 
 
+@functools.cache
+def dense_slices(batch: int, n: int, num_heads: int, bwd: bool,
+                 device: int) -> Tuple[int, int]:
+    """(slices, cluster) of a dense bf16 call on CUDA device ``device`` (the
+    current one): the batch slices whose CTAs fill its SMs in the fewest
+    sample-times, and the CTAs of a head that share one scan of its
+    template as a cluster (the C library decides, from the SM count and the
+    kernel's occupancy)."""
+    lib = _dense_library()
+    s = lib.tpat_window_attention_dense_slices(batch, n, num_heads, int(bwd))
+    if s < 1:
+        raise RuntimeError(
+            f"window_attention_dense slices: CUDA error {-s}")
+    c = lib.tpat_window_attention_dense_cluster(n, num_heads, s, int(bwd))
+    if c < 1:
+        raise RuntimeError(
+            f"window_attention_dense cluster: CUDA error {-c}")
+    return s, c
+
+
 _TICKETS = {}  # (device, stream) -> int32 tickets, 0 between calls
 
 
 def _tickets(device, stream: int, count: int) -> torch.Tensor:
-    """The backward's last-CTA tickets on one stream: zeroed once, put back
-    to 0 by the kernel's last CTA of each (chunk, head)."""
+    """The Hopper backwards' last-CTA tickets on one stream (both sources
+    share them: calls on a stream run in turn): zeroed once, put back to 0
+    by each kernel's last CTA of each sum."""
     t = _TICKETS.get((device, stream))
     if t is None or t.numel() < count:
         t = torch.zeros(count, dtype=torch.int32, device=device)
@@ -503,10 +561,10 @@ def _stream(device) -> int:
 
 
 def _forward_kernel(qkv, scale, template, banded):
-    """Launch the forward: banded bf16 runs ``window_attention_banded.cu``
-    (one kernel); the rest ``window_attention.cu`` (in bf16 the live-block
-    map, then the tensor-core kernel; in f32 the FMA kernel)."""
-    global launches, banded_launches
+    """Launch the forward: banded bf16 runs ``window_attention_banded.cu``,
+    dense bf16 up to 256 tokens ``window_attention_dense.cu`` (one kernel
+    each); the rest the FMA kernel of ``window_attention.cu``."""
+    global launches, dense_launches, banded_launches
     _check_device(qkv, scale, template, banded)
     b, n, c3 = qkv.shape
     h = scale.shape[0]
@@ -523,14 +581,21 @@ def _forward_kernel(qkv, scale, template, banded):
             )
         banded_launches += 1
         return out
-    lib = _library()
-    dtype = _DTYPES[qkv.dtype]
-    scratch = torch.empty(
-        lib.tpat_window_attention_fwd_scratch_bytes(n, h, dtype, int(banded)),
-        dtype=torch.uint8, device=qkv.device)
-    err = lib.tpat_window_attention_fwd(
+    if _hopper_dense(qkv, banded):
+        err = _dense_library().tpat_window_attention_dense_fwd(
+            qkv.data_ptr(), scale.data_ptr(), template.data_ptr(),
+            out.data_ptr(), b, n, h, c3 // 3 // h,
+            *dense_slices(b, n, h, False, qkv.get_device()),
+            _stream(qkv.device))
+        if err != 0:
+            raise RuntimeError(
+                f"window_attention_dense kernel launch failed: CUDA error {err}"
+            )
+        dense_launches += 1
+        return out
+    err = _library().tpat_window_attention_fwd(
         qkv.data_ptr(), scale.data_ptr(), template.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), b, n, h, c3 // 3 // h, dtype,
+        out.data_ptr(), b, n, h, c3 // 3 // h, _DTYPES[qkv.dtype],
         int(banded), _stream(qkv.device),
     )
     if err != 0:
@@ -542,12 +607,11 @@ def _forward_kernel(qkv, scale, template, banded):
 
 
 def _backward_kernels(qkv, scale, template, d_out, banded):
-    """Launch the backward: banded bf16 runs ``window_attention_banded.cu``
-    (one kernel; d_template summed over the batch in its CTAs); the rest
-    ``window_attention_bwd.cu`` (in bf16 the tensor-core kernels: live
-    blocks, dq, dk, dv and per-sample partials, the template sum; in f32
-    the FMA rows, cols and template kernels).  The d_scale partials are
-    summed here."""
+    """Launch the backward: banded bf16 runs ``window_attention_banded.cu``,
+    dense bf16 up to 256 tokens ``window_attention_dense.cu`` (one kernel
+    each; d_template summed over the batch in its CTAs); the rest the FMA
+    rows, cols and template kernels of ``window_attention_bwd.cu``.  The
+    d_scale partials are summed here."""
     global bwd_launches
     _check_device(qkv, scale, template, banded)
     b, n, c3 = qkv.shape
@@ -563,13 +627,14 @@ def _backward_kernels(qkv, scale, template, d_out, banded):
     dev = qkv.device
     if _hopper_banded(qkv, banded):
         return _banded_backward(qkv, scale, template, d_out)
+    if _hopper_dense(qkv, banded):
+        return _dense_backward(qkv, scale, template, d_out)
     lib = _bwd_library()
     dtype = _DTYPES[qkv.dtype]
-    parts = lib.tpat_window_attention_bwd_partials(b, n, int(banded), dtype)
+    parts = lib.tpat_window_attention_bwd_partials(n, int(banded))
     d_qkv = torch.empty_like(qkv)
     scratch = torch.empty(
-        lib.tpat_window_attention_bwd_scratch_bytes(b, n, h, dtype,
-                                                    int(banded)),
+        lib.tpat_window_attention_bwd_scratch_bytes(b, n, h),
         dtype=torch.uint8, device=dev)
     d_template = torch.empty_like(template)
     ds_parts = torch.empty((h, parts), dtype=torch.float32, device=dev)
@@ -619,6 +684,38 @@ def _banded_backward(qkv, scale, band, d_out):
         )
     banded_bwd_launches += 1
     return d_qkv, ds_parts.sum(dim=1), d_band
+
+
+def _dense_backward(qkv, scale, template, d_out):
+    """The dense bf16 backward, one kernel: d_qkv, and d_template and the
+    d_scale partials summed over the batch in its CTAs (each CTA sums its
+    samples' dlog of the live blocks in its slab of ``part``, compact slots
+    at the slab's front; the last CTA of each head sums the slabs in slice
+    order); the (H, slices) d_scale partials summed here."""
+    global dense_bwd_launches
+    b, n, c3 = qkv.shape
+    h = scale.shape[0]
+    dev = qkv.device
+    stream = _stream(dev)
+    slices, cluster = dense_slices(b, n, h, True, qkv.get_device())
+    nb = n // 16
+    d_qkv = torch.empty_like(qkv)
+    d_template = torch.empty_like(template)
+    ds_parts = torch.empty((h, slices), dtype=torch.float32, device=dev)
+    part = torch.empty((slices, h, nb * nb, 256), dtype=torch.float32,
+                       device=dev)
+    tickets = _tickets(dev, stream, h) if slices > 1 else None
+    err = _dense_library().tpat_window_attention_dense_bwd(
+        qkv.data_ptr(), scale.data_ptr(), template.data_ptr(), d_out.data_ptr(),
+        d_qkv.data_ptr(), d_template.data_ptr(), part.data_ptr(),
+        ds_parts.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        b, n, h, c3 // 3 // h, slices, cluster, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention_dense_bwd kernel launch failed: CUDA error {err}"
+        )
+    dense_bwd_launches += 1
+    return d_qkv, ds_parts.sum(dim=1), d_template
 
 
 def window_attention_bwd(qkv, scale, template, d_out, banded: bool):
