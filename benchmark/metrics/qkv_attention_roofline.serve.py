@@ -1,0 +1,12 @@
+"""qkv_attention_roofline.serve: % of roofline of B1 (``csrc/qkv_attention.cu``): the summed bound of the qkv-attention calls that
+the window's units need, from their shapes (``lib/work.py``, the frozen
+``qkv_work`` and ``bound_ms``), over the device time of the kernels whose
+names match (the kernels layer)."""
+
+from benchmark.lib.readers import roofline
+
+PATTERNS = ("qkv_attention_",)
+
+
+def read(ctx):
+    return roofline(ctx, "qkv_attention", PATTERNS)
