@@ -110,7 +110,7 @@ from tpat_tpu_torch.parallel import sharding
 from tpat_tpu_torch.utils import checkpoint as ckpt_lib
 from tpat_tpu_torch.utils import torch_import as ti
 from tpat_tpu_torch.utils.features import FeatureWriter
-from tpat_tpu_torch.utils.logging import profiler_trace
+from tpat_tpu_torch.utils.tracing import profiler_trace
 from tpat_tpu_torch.utils.weights import load_pth, state_dict_of
 
 
@@ -130,8 +130,12 @@ def get_args_parser():
                    choices=["bfloat16", "float32"])
     p.add_argument("--gelu_impl", default="auto",
                    choices=["auto", "exact", "poly"])
-    # a torch.profiler trace of one training epoch
-    p.add_argument("--profile_dir", default=None, type=str)
+    p.add_argument("--profile_dir", default=None, type=str,
+                   help="write a torch.profiler Chrome trace of epoch "
+                   "--profile_epoch to DIR/trace.json; it carries the "
+                   "program's spans (train.step, train.forward, "
+                   "train.backward, train.update, vit.prune) beside the "
+                   "ops and kernels")
     p.add_argument("--profile_epoch", default=1, type=int)
     # optimizer
     p.add_argument("--clip_grad", type=float, default=None)

@@ -39,6 +39,7 @@ import torch
 from tpat_tpu_torch.engine import schedules
 from tpat_tpu_torch.models.mae import MaskedAutoencoderViT, Noise
 from tpat_tpu_torch.parallel import distributed as dist_lib
+from tpat_tpu_torch.utils import tracing
 
 FROZEN_POS = ("pos_embed", "decoder_pos_embed")
 
@@ -116,8 +117,10 @@ def make_mae_train_step(
 ):
     """``train_step(loss_sum, step, x, *, noise=None, deterministic=False)
     -> loss_sum + loss``, one forward, backward and AdamW update at
-    ``lr_fn(step)``.  The loss is added to the device-side ``loss_sum``
-    without a host read.  ``noise`` replaces the step generator's masking
+    ``lr_fn(step)``, traced as ``pretrain.step`` around
+    ``pretrain.forward``, ``pretrain.backward`` and ``pretrain.update``
+    (which holds ``pretrain.grad_sync`` where there are ranks).  The loss
+    is added to the device-side ``loss_sum`` without a host read.  ``noise`` replaces the step generator's masking
     noise and ``deterministic=True`` switches the meta-MLP dropout off, for
     comparisons that must see the same masks."""
 
@@ -125,17 +128,25 @@ def make_mae_train_step(
         loss_sum: torch.Tensor, step: int, x: torch.Tensor, *,
         noise: Optional[Noise] = None, deterministic: bool = False,
     ) -> torch.Tensor:
-        model.train()
-        for group in optimizer.param_groups:
-            group["lr"] = lr_fn(step)
-        gen = step_generator(seed, step, x.device)
-        loss, _, _ = model(x, mask_ratio, noise=noise, generator=gen,
-                           deterministic=deterministic)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        dist_lib.all_reduce_mean_(
-            [p.grad for p in model.parameters() if p.grad is not None])
-        optimizer.step()
-        return loss_sum + loss.detach()
+        with tracing.span("pretrain.step"):
+            model.train()
+            for group in optimizer.param_groups:
+                group["lr"] = lr_fn(step)
+            with tracing.span("pretrain.forward"):
+                gen = step_generator(seed, step, x.device)
+                loss, _, _ = model(x, mask_ratio, noise=noise, generator=gen,
+                                   deterministic=deterministic)
+            with tracing.span("pretrain.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with tracing.span("pretrain.update"):
+                grads = [p.grad for p in model.parameters()
+                         if p.grad is not None]
+                sync = (tracing.span("pretrain.grad_sync")
+                        if dist_lib.group_rank_world()[1] > 1 else tracing.OFF)
+                with sync:
+                    dist_lib.all_reduce_mean_(grads)
+                optimizer.step()
+                return loss_sum + loss.detach()
 
     return train_step

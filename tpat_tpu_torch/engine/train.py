@@ -63,6 +63,7 @@ from tpat_tpu_torch.engine import schedules
 from tpat_tpu_torch.models.vit import AudioViT, shard_model_
 from tpat_tpu_torch.parallel import distributed as dist_lib
 from tpat_tpu_torch.parallel import sharding
+from tpat_tpu_torch.utils import tracing
 
 
 def soft_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -244,16 +245,18 @@ class TrainModule:
         """One forward and backward in training mode: (loss, gradients of
         ``state.params``)."""
         state.model.train()
-        x = torch.as_tensor(x, device=self.device)
-        y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
-        if self.preprocess is not None:
-            x = self.preprocess(x, state.generator, specaug=phase == "dense",
-                                train=True)
-        logits = self._forward(
-            state, x, phase, mask_prob, static_rates, keep_rates, num_left
-        )
-        loss = self.loss_fn(logits, y)
-        grads = torch.autograd.grad(loss, state.params)
+        with tracing.span("train.forward"):
+            x = torch.as_tensor(x, device=self.device)
+            y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
+            if self.preprocess is not None:
+                x = self.preprocess(x, state.generator,
+                                    specaug=phase == "dense", train=True)
+            logits = self._forward(
+                state, x, phase, mask_prob, static_rates, keep_rates, num_left
+            )
+            loss = self.loss_fn(logits, y)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, state.params)
         return loss.detach(), list(grads)
 
     def train_step(
@@ -263,14 +266,31 @@ class TrainModule:
     ):
         """One micro-step (``train.py:229-278``): gradients, an optimizer
         update every ``accum_iter`` micro-steps on their mean, and the
-        device-side metric sums."""
-        loss, grads = self.loss_and_grads(
-            state, x, y, phase, mask_prob, static_rates, keep_rates, num_left
-        )
+        device-side metric sums.  Traced as ``train.step`` around
+        ``train.forward``, ``train.backward`` and ``train.update`` (which
+        holds ``train.grad_sync`` where there are data ranks)."""
+        with tracing.span("train.step"):
+            loss, grads = self.loss_and_grads(
+                state, x, y, phase, mask_prob, static_rates, keep_rates,
+                num_left
+            )
+            with tracing.span("train.update"):
+                self._update(state, acc, loss, grads)
+
+    def _grad_mean_(self, grads: List[torch.Tensor]):
+        """The gradients' mean over the data ranks, in place, traced as
+        ``train.grad_sync`` where there is more than one."""
+        dp = (self.mesh.dp if self.mesh is not None
+              else dist_lib.group_rank_world()[1])
+        with tracing.span("train.grad_sync") if dp > 1 else tracing.OFF:
+            self._data_mean_(grads)
+
+    def _update(self, state: TrainState, acc: Dict, loss: torch.Tensor,
+                grads: List[torch.Tensor]):
         update = state.step // self.accum
         if self.accum == 1:
             # the global batch's gradient (JAX's psum)
-            self._data_mean_(grads)
+            self._grad_mean_(grads)
         acc["grad_norm_sum"] += self._grad_norm(state, grads)
         if self.accum > 1:
             if state.grad_sum is None:
@@ -282,7 +302,7 @@ class TrainModule:
             if self.accum > 1:
                 mean = [g / self.accum for g in state.grad_sum]
                 state.grad_sum = None
-                self._data_mean_(mean)
+                self._grad_mean_(mean)
             if self.train_cfg.clip_grad is not None:
                 opt_lib.clip_by_global_norm_(
                     mean, self.train_cfg.clip_grad,

@@ -79,6 +79,7 @@ from tpat_tpu_torch.ops.attention import attention_with_scores
 from tpat_tpu_torch.ops.layernorm import fused_layernorm
 from tpat_tpu_torch.parallel import sharding
 from tpat_tpu_torch.parallel.mesh import rand_rows
+from tpat_tpu_torch.utils import tracing
 from tpat_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_plain,
@@ -390,6 +391,8 @@ class Block(nn.Module):
         masks drawn before it."""
         e = self.num_extra_tokens
         n_mlp = x.shape[1]
+        # counted here, outside the checkpoint, so a recompute counts nothing
+        tracing.count("attention_rows", x.shape[0] * x.shape[1])
         if keep_rate < 1.0:
             k = pruning.num_left_tokens(keep_rate, x.shape[1] - e)
             # the custom-rank gather keeps k rows of the whole sequence
@@ -411,16 +414,17 @@ class Block(nn.Module):
         if extract_features and scores is not None:
             aux["scores"] = scores
         if prune:
-            k = pruning.num_left_tokens(keep_rate, p_in)
-            if custom_rank is None:
-                idx = pruning.topk_select(scores.detach(), k)
-                x = pruning.gather_tokens(x, idx, e)
-            else:
-                # the reference's quirk (models_vit.py:215-220), kept: the
-                # gather indexes the FULL sequence, extras included, with
-                # patch-space indices
-                idx = pruning.topk_select(custom_rank, k)
-                x = pruning.take_rows(x, idx)
+            with tracing.span("vit.prune"):
+                k = pruning.num_left_tokens(keep_rate, p_in)
+                if custom_rank is None:
+                    idx = pruning.topk_select(scores.detach(), k)
+                    x = pruning.gather_tokens(x, idx, e)
+                else:
+                    # the reference's quirk (models_vit.py:215-220), kept:
+                    # the gather indexes the FULL sequence, extras
+                    # included, with patch-space indices
+                    idx = pruning.topk_select(custom_rank, k)
+                    x = pruning.take_rows(x, idx)
             aux["topk_idx"] = idx
         return self._mlp(x, noise), aux
 
@@ -453,6 +457,7 @@ class Block(nn.Module):
         unmasked; ``prefix_len`` states that the mask is the uniform prefix
         [0, prefix_len).  Returns (x, refined token_mask)."""
         n = x.shape[1]
+        tracing.count("attention_rows", x.shape[0] * n)
         n_mlp = self.num_extra_tokens + bucket_k if bucket_k is not None else n
         noise = self.draw(x.shape[0], n, n_mlp, x.device, generator)
         x, scores = self._attention(
@@ -463,21 +468,25 @@ class Block(nn.Module):
         )
 
         if keep_rate is not None:
-            scores = scores.detach()
-            if num_left is None:
-                kept = token_mask.sum(1)
-                num_left = (num_left_table[kept] if num_left_table is not None
-                            else pruning.masked_num_left(keep_rate, kept))
-            if bucket_k is not None:
-                masked = scores.masked_fill(~token_mask, float("-inf"))
-                idx = pruning.topk_select(masked, bucket_k)
-                x = pruning.gather_tokens(x, idx, self.num_extra_tokens)
-                if isinstance(num_left, torch.Tensor):
-                    num_left = num_left[:, None]
-                rank = torch.arange(bucket_k, device=x.device)
-                token_mask = (rank[None, :] < num_left).expand(x.shape[0], -1)
-            else:
-                token_mask = pruning.masked_refine(scores, token_mask, num_left)
+            with tracing.span("vit.prune"):
+                scores = scores.detach()
+                if num_left is None:
+                    kept = token_mask.sum(1)
+                    num_left = (num_left_table[kept]
+                                if num_left_table is not None
+                                else pruning.masked_num_left(keep_rate, kept))
+                if bucket_k is not None:
+                    masked = scores.masked_fill(~token_mask, float("-inf"))
+                    idx = pruning.topk_select(masked, bucket_k)
+                    x = pruning.gather_tokens(x, idx, self.num_extra_tokens)
+                    if isinstance(num_left, torch.Tensor):
+                        num_left = num_left[:, None]
+                    rank = torch.arange(bucket_k, device=x.device)
+                    token_mask = (rank[None, :] < num_left).expand(
+                        x.shape[0], -1)
+                else:
+                    token_mask = pruning.masked_refine(scores, token_mask,
+                                                       num_left)
 
         return self._mlp(x, noise), token_mask
 

@@ -1,16 +1,13 @@
 """Metric logging (``tpat_tpu/utils/logging.py``): the reference's
-``SmoothedValue`` and ``MetricLogger``, and a ``torch.profiler`` trace of a
-code region written as a Chrome trace (the JAX package's
-``jax.profiler`` trace)."""
+``SmoothedValue`` and ``MetricLogger``.  The JAX package's profiler trace
+has its counterpart in ``utils/tracing.py::profiler_trace``."""
 
 from __future__ import annotations
 
-import contextlib
 import datetime
-import os
 import time
 from collections import defaultdict, deque
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable
 
 
 class SmoothedValue:
@@ -117,22 +114,3 @@ class MetricLogger:
             f"{header} Total time: "
             f"{str(datetime.timedelta(seconds=int(elapsed)))}"
         )
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: Optional[str]):
-    """``torch.profiler`` over the block (host and, where there is a card,
-    device activity), written as ``log_dir/trace.json`` for
-    chrome://tracing or Perfetto; a no-op when log_dir is None."""
-    if log_dir is None:
-        yield
-        return
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

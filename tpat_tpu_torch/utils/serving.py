@@ -39,6 +39,7 @@ import torch
 from tpat_tpu_torch.config import ViTConfig
 from tpat_tpu_torch.models.vit import AudioViT
 from tpat_tpu_torch.ops.frontend import FrontendConfig, device_frontend
+from tpat_tpu_torch.utils import tracing
 from tpat_tpu_torch.utils.weights import jax_flat_from_state_dict, state_dict_from_jax
 
 
@@ -128,7 +129,8 @@ def load_forward(
     """Load an artifact onto ``device``; returns ``(fn, meta)`` where
     ``fn(x)`` maps a batch of the artifact's input shape ((n, 1, T, F),
     AST's (n, 1, F, T), or (n, num_samples) waveforms; numpy or tensor) to
-    (n, classes) f32 logits on ``device``."""
+    (n, classes) f32 logits on ``device``; each call is traced as
+    ``serve.request``."""
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)
     if cfg is None:
@@ -167,22 +169,23 @@ def load_forward(
         return forward(chunk)[:n]
 
     def fn(x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=dtype, device=device)
-        if tuple(x.shape[1:]) != sample_shape:
-            raise ValueError(
-                f"request shape {tuple(x.shape)} does not match the "
-                f"artifact's (n,) + {sample_shape}"
-            )
-        if x.shape[0] == 0:
-            raise ValueError("empty batch")
-        if "batch_sizes" not in meta and x.shape[0] != buckets[0]:
-            raise ValueError(
-                f"artifact is fixed to batch {buckets[0]}, got {x.shape[0]}"
-            )
-        biggest = buckets[-1]
-        outs = [
-            _run_padded(x[i:i + biggest]) for i in range(0, x.shape[0], biggest)
-        ]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        with tracing.span("serve.request"):
+            x = torch.as_tensor(x, dtype=dtype, device=device)
+            if tuple(x.shape[1:]) != sample_shape:
+                raise ValueError(
+                    f"request shape {tuple(x.shape)} does not match the "
+                    f"artifact's (n,) + {sample_shape}"
+                )
+            if x.shape[0] == 0:
+                raise ValueError("empty batch")
+            if "batch_sizes" not in meta and x.shape[0] != buckets[0]:
+                raise ValueError(
+                    f"artifact is fixed to batch {buckets[0]}, got "
+                    f"{x.shape[0]}"
+                )
+            biggest = buckets[-1]
+            outs = [_run_padded(x[i:i + biggest])
+                    for i in range(0, x.shape[0], biggest)]
+            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
     return fn, meta
