@@ -248,9 +248,28 @@ printing a result:
     then ``--eval`` of its best_model on the same two ranks: the logged
     best acc1 equal to the eval's, best_model loaded strict into a tp = 1
     ``AudioViT``, no write from rank 1, no B1-B3 launch;
-27. the kernels line, with the entries ``layernorm_fwd``,
-    ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped`` and
-    ``ln_matmul`` beside those of phases 1-15; the ``qkv_attention_*``,
+27. the polynomial GELU (B-G, ``csrc/gelu_poly.cu``, built in phase 2's
+    batch): ``gelu_poly`` forward and backward through its autograd
+    Function against the eager ops (``gelu_poly_fwd_plain``,
+    ``gelu_poly_bwd_plain``) bit for bit, each direction's kernel launched
+    once, on every bf16 value, at n 1, 7 and 8k + 3, on views 2 and 6
+    bytes off 16, with a non-contiguous x and gradient, at the cells' fc1
+    shapes (``GELU_SHAPES``), and in an fc1 -> GELU -> fc2 under
+    ``torch.utils.checkpoint`` (every gradient equal to the one without, the
+    forward launched twice); one traced b128 static finetune step whose
+    ``train.forward`` counts only ``gelu_kernel`` (share 1.0), 3072 x the
+    rows its MLPs see; kernel, plain and library (``F.gelu``,
+    ``aten.gelu_backward``) ms by CUDA events in turns and by
+    ``torch.profiler`` (where it records), beside the byte bound (4 bytes
+    an element forward, 6 backward), at (128, 257, 3072) and (256, 512,
+    2048); the registers and spills of both kernels;
+28. the kernels line, with the entries ``layernorm_fwd``,
+    ``layernorm_bwd``, ``attn_probe_variants``, ``attn_probe_grouped``,
+    ``ln_matmul``, ``gelu_poly_fwd`` and ``gelu_poly_bwd`` beside those of
+    phases 1-15 (the GELU's launches are the main paths' own, each counted
+    from zero over its run: phases 4, 8, 13, 20-23 and 26's ranks, held
+    to one a block each way in phases 4, 8 and 13 and to the one process's
+    in 26); the ``qkv_attention_*``,
     ``window_attention_*``, ``attn_probe_*`` and ``ln_matmul`` entries
     also give the design of their bf16 build and the registers and spill
     bytes of its kernels (per head_dim, per probe variant or geometry, per
@@ -403,12 +422,14 @@ def check_device() -> str:
 
 
 def build_kernels():
-    """Phases 2, 6, 11 and 16: one nvcc per source, all started together."""
+    """Phases 2, 6, 11, 16 and 27's build: one nvcc per source, all started
+    together."""
     from tpat_tpu_torch.ops import _build
 
     names = ("qkv_attention", "qkv_attention_bwd", "window_attention",
              "window_attention_bwd", "window_attention_dense",
-             "window_attention_banded", "layernorm", "attn_probe", "ln_matmul")
+             "window_attention_banded", "layernorm", "attn_probe", "ln_matmul",
+             "gelu_poly")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
@@ -995,6 +1016,39 @@ def sharpened_state_dict(model, seed):
     }
 
 
+# the GELU kernels' (forward, backward) launches of each main path, counted
+# from zero over the path as the attention kernels' are (phase 27's own
+# checks and timings launch them too, and are not counted)
+GELU_LAUNCHES = {}
+
+
+def _gelu_zero():
+    from tpat_tpu_torch.ops import fast_gelu as fg
+
+    fg.launches = fg.bwd_launches = 0
+
+
+def _gelu_read(path) -> tuple:
+    """The GELU kernels' (forward, backward) launches since ``_gelu_zero``,
+    added to ``GELU_LAUNCHES[path]``."""
+    from tpat_tpu_torch.ops import fast_gelu as fg
+
+    got = (fg.launches, fg.bwd_launches)
+    had = GELU_LAUNCHES.get(path, (0, 0))
+    GELU_LAUNCHES[path] = (had[0] + got[0], had[1] + got[1])
+    return got
+
+
+def _gelu_per_block(path, got, attention):
+    """Raises unless the path launched one GELU per attention call each
+    way: every block of these models runs one attention and one MLP, so
+    the GELU's (forward, backward) launches equal the attention kernels'
+    (forward, backward rows)."""
+    if tuple(got) != tuple(attention):
+        raise AssertionError(f"{path}: GELU launches (fwd, bwd) {got}, the "
+                             f"attention's {attention}")
+
+
 def serving_path(tmp):
     from tpat_tpu_torch.cli import export_serving
     from tpat_tpu_torch.config import audiomae_vit_base
@@ -1027,6 +1081,7 @@ def serving_path(tmp):
     torch.cuda.synchronize()
 
     qa.launches = 0  # the main path starts here
+    _gelu_zero()
     per_request = {}
     for n, x in requests.items():
         before = qa.launches
@@ -1041,8 +1096,10 @@ def serving_path(tmp):
         if y.shape != (n, 50) or not torch.isfinite(y).all():
             raise AssertionError(f"request of {n}: bad logits {tuple(y.shape)}")
     launches = qa.launches  # the main path ends here
+    gelu = _gelu_read("serve")
+    _gelu_per_block("serving", gelu, (launches, 0))
     log(f"serving: requests {list(REQUESTS)} answered, launches per request "
-        f"{per_request}, total {launches}")
+        f"{per_request}, total {launches}; GELU launches {gelu}")
 
     x = requests[128]
     clips = {}
@@ -1336,10 +1393,14 @@ def training_path(sd):
             if count:
                 qa.launches = qa.prefix_launches = 0  # the main path starts here
                 qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+                _gelu_zero()
             steps, losses = _run_epochs(
                 dataclasses.replace(cfg, attention_impl=impl), tc, sd, batches,
                 lambda: _counts(qa), calls, impl)
             counts = _counts(qa)  # the main path ends here
+            if count:
+                _gelu_per_block("training", _gelu_read("train"),
+                                (counts[0] + counts[1], counts[2]))
         return steps, losses, counts
 
     k_steps, losses, counts = run("fused", True)
@@ -1841,6 +1902,7 @@ def pretrain_path():
             qa.launches = qa.prefix_launches = 0  # the main path starts here
             qa.bwd_rows_launches = qa.bwd_cols_launches = 0
             _zero_window(wa)
+            _gelu_zero()
             total = torch.zeros((), device="cuda")
             for i in range(PRETRAIN_STEPS):
                 c0, i0 = _pretrain_counts(qa, wa), len(calls)
@@ -1858,6 +1920,9 @@ def pretrain_path():
                     raise AssertionError(f"{grid}: steps launched at different "
                                          "geometries")
             counts[grid] = _pretrain_counts(qa, wa)  # the main path ends here
+            c = counts[grid]
+            _gelu_per_block(f"pretrain {grid}", _gelu_read("pretrain"),
+                            (c[0] + c[3] + c[4], c[1] + c[5] + c[6]))
         if qa.prefix_launches:
             raise AssertionError(f"{grid}: the prefix kernel ran")
         if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
@@ -2759,11 +2824,13 @@ def finetune_path(tmp, walks, phase8_ms, smi):
     with _finetune_recording(qa, calls, epochs, evals):
         qa.launches = qa.prefix_launches = 0  # the main path starts here
         qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+        _gelu_zero()
         t0 = time.perf_counter()
         best = finetune.main(finetune.get_args_parser().parse_args(argv))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = _counts(qa)  # the main path ends here
+        _gelu_read("finetune")
 
     with open(os.path.join(out, "log.txt")) as f:
         logs = [json.loads(line) for line in f]
@@ -2993,11 +3060,13 @@ def ast_path(tmp, paths, smi):
     with _finetune_recording(qa, calls, epochs, evals):
         qa.launches = qa.prefix_launches = 0  # the main path starts here
         qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+        _gelu_zero()
         t0 = time.perf_counter()
         best = run_ast.main(run_ast.get_parser().parse_args(argv))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = _counts(qa)  # the main path ends here
+        _gelu_read("ast")
 
     result = np.loadtxt(os.path.join(out, "result.csv"), delimiter=",")
     if result.shape != (4, 4) or not np.isfinite(result).all():
@@ -3301,11 +3370,13 @@ def waveform_training(tmp, paths, walks, ft_loader, smi):
         with _finetune_recording(qa, calls, epochs, evals):
             qa.launches = qa.prefix_launches = 0  # the main path starts here
             qa.bwd_rows_launches = qa.bwd_cols_launches = 0
+            _gelu_zero()
             t0 = time.perf_counter()
             finetune.main(finetune.get_args_parser().parse_args(argv))
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = _counts(qa)  # the main path ends here
+            _gelu_read("waveform")
     finally:
         finetune.make_preprocess = make_preprocess
     with open(os.path.join(out, "log.txt")) as f:
@@ -3677,11 +3748,13 @@ def _pretrain_cli_run(argv, decoder_mode, what):
         qa.launches = qa.prefix_launches = 0  # the main path starts here
         qa.bwd_rows_launches = qa.bwd_cols_launches = 0
         _zero_window(wa)
+        _gelu_zero()
         t0 = time.perf_counter()
         losses = cli_pretrain.main(cli_pretrain.get_args_parser().parse_args(argv))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _pretrain_counts(qa, wa)  # the main path ends here
+        _gelu_read("pretrain CLI")
     if qa.prefix_launches:
         raise AssertionError(f"{what}: the prefix kernel ran")
     want = PRETRAIN_CLI_LAUNCHES[decoder_mode]
@@ -4701,12 +4774,13 @@ def tp_engine_run(dtype, mesh=None):
     three seeded b32 batches, on a rank of ``mesh``, whose ``TrainModule``
     forces the attention to 'xla', or in one process at 'xla' (``mesh``
     None).  Returns the per-step losses, ms and model-group all-reduce ms,
-    the B1-B3 and B4 launches of the steps, the kept ids of every drop
+    the B1-B3, B4 and B-G launches of the steps, the kept ids of every drop
     block, and the flat parameters before and after (gathered under
     ``mesh``)."""
     from tpat_tpu_torch.cli import profile_train
     from tpat_tpu_torch.engine.train import TrainModule
     from tpat_tpu_torch.models.vit import AudioViT
+    from tpat_tpu_torch.ops import fast_gelu as fg
     from tpat_tpu_torch.ops import layernorm as ln
     from tpat_tpu_torch.ops import pruning
     from tpat_tpu_torch.ops import qkv_attention as qa
@@ -4746,6 +4820,7 @@ def tp_engine_run(dtype, mesh=None):
         qa.launches = qa.prefix_launches = 0  # the path starts here
         qa.bwd_rows_launches = qa.bwd_cols_launches = 0
         ln.launches = ln.bwd_launches = 0
+        fg.launches = fg.bwd_launches = 0
         for name, (x, y) in zip(DP_STEPS, data):
             kw = variants[name]
             picked.clear()
@@ -4761,7 +4836,8 @@ def tp_engine_run(dtype, mesh=None):
             drops = [kw["num_left"][i] if "num_left" in kw else None
                      for i in cfg.drop_loc] if kw["phase"] != "dense" else []
             kept.append(_kept_ids(picked, drops, cfg.num_patches))
-        launches = _counts(qa) + (ln.launches, ln.bwd_launches)  # ends here
+        launches = (_counts(qa) + (ln.launches, ln.bwd_launches)
+                    + (fg.launches, fg.bwd_launches))  # ends here
     finally:
         pruning.topk_select, sharding._all_reduce_f32 = topk, reduce
     full = state.model.state_dict()
@@ -4806,13 +4882,14 @@ def tp_rank_main(out):
 def tp_engine_check(one, ranks, smi) -> tuple:
     """Phase 26.1: ``tp_engine_run`` in one process (``one``) and on the
     two ranks of the model group: the attention 'xla' and no B1-B3 launch
-    on either side, each rank's B4 launches equal to the one process's,
-    the per-step losses and the parameters within ``DP_TOL``, the ranks'
+    on either side, each rank's B4 and B-G launches equal to the one
+    process's (B-G: one a block each way in bf16, none in f32), the
+    per-step losses and the parameters within ``DP_TOL``, the ranks'
     losses and gathered parameters equal, the kept tokens equal in every
-    row without a tie.  Returns the ranks' summed (B4 forward, B4 backward)
-    launches."""
+    row without a tie.  Returns the ranks' summed (B4 forward, B4 backward,
+    B-G forward, B-G backward) launches."""
     ranks = [r["engine"] for r in ranks]
-    total = [0, 0]
+    total = [0, 0, 0, 0]
     for dtype, tol in DP_TOL.items():
         o, rs = one[dtype], [r[dtype] for r in ranks]
         for x in rs + [o]:
@@ -4820,7 +4897,7 @@ def tp_engine_check(one, ranks, smi) -> tuple:
                 raise AssertionError(f"26.1 {dtype}: {x['attention_impl']} "
                                      f"attention launched {x['launches']}")
         for r, x in enumerate(rs):
-            if x["launches"] != o["launches"] or min(x["launches"][4:]) == 0:
+            if x["launches"] != o["launches"] or min(x["launches"][4:6]) == 0:
                 raise AssertionError(f"26.1 {dtype}: rank {r} launched "
                                      f"{x['launches']}, one process "
                                      f"{o['launches']}")
@@ -4930,8 +5007,8 @@ def tp_cli_check(spawned, argvs, smi):
 
 
 def tensor_parallel_path(tmp, paths, smi):
-    """Phase 26.  Returns the (B4 forward, B4 backward) launches of its
-    ranks."""
+    """Phase 26.  Returns the (B4 forward, B4 backward, B-G forward, B-G
+    backward) launches of its ranks."""
     t0 = time.perf_counter()
     one = {d: tp_engine_run(d) for d in DP_TOL}
     out = os.path.join(tmp, "tp_ft_out")
@@ -4943,9 +5020,209 @@ def tensor_parallel_path(tmp, paths, smi):
     log(f"phase 26: the spawn of the ranks took {seconds:.1f} s")
     launches = tp_engine_check(one, ranks, smi)
     tp_cli_check(ranks, argvs, smi)
-    log(f"phase 26: {time.perf_counter() - t0:.1f} s; B4 launches of its "
-        f"ranks (fwd, bwd) {launches}")
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s; B4 and B-G launches "
+        f"of its ranks (B4 fwd, bwd, B-G fwd, bwd) {launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the polynomial GELU (B-G), kernels vs the eager ops
+# ---------------------------------------------------------------------------
+
+# the cells' fc1 outputs (B, N, 4C): the ESC-50 ViT at b128, N 257 and the
+# pruned 90, its 16-clip request in bucket 32, the MAE encoder at b256, N 96
+# and its swin decoder at N 512, 4C 2048
+GELU_SHAPES = ((128, 257, 3072), (128, 90, 3072), (32, 257, 3072),
+               (256, 96, 3072), (256, 512, 2048))
+GELU_TIMED = (GELU_SHAPES[0], GELU_SHAPES[4])
+GELU_ODD = (1, 7, 8 * 1001 + 3)
+GELU_DESIGN = (
+    "one kernel a direction, bf16 in and out: 16-byte ld.global.nc loads "
+    "and 16-byte stores of 8 bf16, four vectors a thread loaded before any "
+    "is computed, one CTA of 256 threads per 8192 elements, one templated "
+    "stream for both directions, one element at a time for the tail, a "
+    "view off 16 bytes copied by the wrapper first; f32 "
+    "__fmul_rn/__fadd_rn in the eager ops' order (no FMA), the clamp by "
+    "max.NaN/min.NaN, bit-equal to the eager ops")
+
+
+def _gelu_same(got, want, what):
+    """bf16 got and want bit for bit (NaN payloads included); raises with
+    the count of elements that differ."""
+    gi, wi = got.view(torch.int16), want.view(torch.int16)
+    if got.shape != want.shape or not torch.equal(gi, wi):
+        nan = torch.isnan(got) & torch.isnan(want)
+        raise AssertionError(
+            f"gelu {what}: {int((gi != wi).sum())} of {got.numel()} elements "
+            f"differ in their bits ({int(((gi != wi) & nan).sum())} of them "
+            "NaN in both)")
+
+
+def _gelu_pair(fg, x, g, what):
+    """``gelu_poly`` forward and backward on x (cotangent g) through the
+    autograd Function against the eager ops, bit for bit; raises unless each
+    direction launched its kernel once."""
+    before = (fg.launches, fg.bwd_launches)
+    xr = x.detach().requires_grad_()
+    y = fg.gelu_poly(xr)
+    (dx,) = torch.autograd.grad(y, xr, g)
+    if (fg.launches - before[0], fg.bwd_launches - before[1]) != (1, 1):
+        raise AssertionError(f"gelu {what}: the kernels were not launched")
+    _gelu_same(y, fg.gelu_poly_fwd_plain(x), what + " forward")
+    _gelu_same(dx, fg.gelu_poly_bwd_plain(x, g), what + " backward")
+
+
+def _gelu_checkpoint(fg, gen):
+    """fc1 -> gelu_poly -> fc2 in bf16 under ``torch.utils.checkpoint`` and
+    without: the same bits in every gradient, and the recompute launches the
+    forward kernel once more."""
+    import torch.utils.checkpoint as cp
+
+    h = torch.randn(4, 257, 768, device="cuda", generator=gen).bfloat16()
+    w1, w2 = (torch.randn(*s, device="cuda", generator=gen).bfloat16() / 28
+              for s in ((768, 3072), (3072, 768)))
+    dy = torch.randn(4, 257, 768, device="cuda", generator=gen).bfloat16()
+
+    def mlp(h, w1, w2):
+        return fg.gelu_poly(h @ w1) @ w2
+
+    grads, counts = [], []
+    for checkpointed in (False, True):
+        leaves = [t.detach().requires_grad_() for t in (h, w1, w2)]
+        before = (fg.launches, fg.bwd_launches)
+        out = (cp.checkpoint(mlp, *leaves, use_reentrant=False)
+               if checkpointed else mlp(*leaves))
+        grads.append(torch.autograd.grad(out, leaves, dy))
+        counts.append((fg.launches - before[0], fg.bwd_launches - before[1]))
+    for a, b, name in zip(*grads, ("h", "w1", "w2")):
+        _gelu_same(b, a, f"checkpointed d{name}")
+    if counts != [(1, 1), (2, 1)]:
+        raise AssertionError(f"gelu under checkpoint: launches {counts}, "
+                             "expected [(1, 1), (2, 1)]")
+
+
+def _gelu_traced_step(fg):
+    """One b128 bf16 static finetune step under ``torch.profiler``: the
+    ``gelu_kernel`` share of ``train.forward``'s counts (1.0 when every call
+    takes the kernel) and its elements against the MLPs' (B x the tokens
+    each block keeps x 4C), and the device ms of the step's GELU kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpat_tpu_torch.cli import profile_train
+    from tpat_tpu_torch.cli.profile_forward import kernel_rows
+    from tpat_tpu_torch.engine.train import TrainModule
+    from tpat_tpu_torch.utils import tracing
+
+    cfg, tc = profile_train.train_configs()
+    mod = TrainModule(cfg, tc, "ce", 2)
+    state, acc = mod.init(SEED), mod._zero_acc()
+    (x, y), = profile_train.synthetic_batches(cfg, profile_train.TRAIN_BATCH,
+                                              1, SEED + 27)
+    mod.train_step(state, acc, x, y, phase="static")
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mod.train_step(state, acc, x, y, phase="static")
+        torch.cuda.synchronize()
+    counts = tracing.records("train.forward")[-1].counts
+    kernel, eager = counts.get("gelu_kernel", 0), counts.get("gelu_eager", 0)
+    share = kernel / max(kernel + eager, 1)
+    rows = x.shape[0] * sum(out + cfg.num_extra_tokens
+                            for _, out in cfg.tokens_per_block())
+    if share != 1.0 or kernel != int(cfg.embed_dim * cfg.mlp_ratio) * rows:
+        raise AssertionError(
+            f"traced step: gelu_kernel {kernel}, gelu_eager {eager}, the "
+            f"MLPs' rows {rows}")
+    kernels = kernel_rows(prof, 1)
+    ms = {k: sum(r["device_ms"] for r in kernels if k in r["name"]) or None
+          for k in ("gelu_poly_fwd_kernel", "gelu_poly_bwd_kernel")}
+    del mod, state, acc
+    return {"share": share, "elements": kernel, "mlp_rows": rows,
+            "device_ms": ms}
+
+
+def gelu_path(smi) -> dict:
+    """Phase 27: the GELU kernels against the eager ops, bit for bit, at
+    every cell's fc1 shape, odd sizes, a view off 16 bytes, a
+    non-contiguous gradient and inside ``torch.utils.checkpoint``; the
+    ``gelu_kernel`` share of a traced finetune step; kernel, plain and
+    library (``F.gelu`` and its backward, the exact-erf GELU the port never
+    calls on these paths) ms beside the byte bound at the timed shapes.
+    Returns the kernels line's two entries' fields."""
+    from tpat_tpu_torch.ops import fast_gelu as fg
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+
+    every = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda")
+    every = every.to(torch.int16).view(torch.bfloat16)
+    _gelu_pair(fg, every, randn(every.numel()), "every bf16 value")
+    for n in GELU_ODD:
+        _gelu_pair(fg, randn(n) * 3, randn(n), f"n = {n}")
+    n = GELU_ODD[-1]
+    xb, gb = randn(n + 8) * 3, randn(n + 8)
+    x, g = xb[1:n + 1], gb[3:n + 3]  # 2 and 6 bytes off 16
+    if x.data_ptr() % 16 == 0 or g.data_ptr() % 16 == 0:
+        raise AssertionError("the sliced views are 16-byte aligned")
+    _gelu_pair(fg, x, g, "views off 16 bytes")
+    _gelu_pair(fg, randn(3072, 257).t(), randn(3072, 257).t(),
+               "non-contiguous x and gradient")
+    _gelu_pair(fg, randn(257, 3072), randn(3072, 257).t(),
+               "non-contiguous gradient")
+    _gelu_checkpoint(fg, gen)
+    log(f"gelu: kernels = eager bit for bit on every bf16 value, n in "
+        f"{GELU_ODD}, views off 16 bytes, non-contiguous x and gradient, "
+        "and under torch.utils.checkpoint")
+    timed = {}
+    for shape in GELU_SHAPES:
+        x, g = randn(*shape) * 2, randn(*shape)
+        _gelu_pair(fg, x, g, f"{shape}")
+        if shape not in GELU_TIMED:
+            continue
+        n = x.numel()
+        with torch.no_grad():
+            for bwd in (False, True):
+                if bwd:
+                    kern = lambda: fg._backward_kernel(x, g)  # noqa: E731
+                    plain = lambda: fg.gelu_poly_bwd_plain(x, g)  # noqa: E731
+                    library = lambda: torch.ops.aten.gelu_backward(g, x)  # noqa: E731
+                else:
+                    kern = lambda: fg._forward_kernel(x)  # noqa: E731
+                    plain = lambda: fg.gelu_poly_fwd_plain(x)  # noqa: E731
+                    library = lambda: F.gelu(x)  # noqa: E731
+                k, p = _turns(kern, plain)
+                lib = _time_ms(library)
+                # None where the profiler records no kernel, as late in
+                # this long process it may
+                dev = [_device_ms(f) or None for f in (kern, plain, library)]
+                bnd = bound_ms((6 if bwd else 4) * n, 0.0, torch.bfloat16)
+                key = f"{'bwd' if bwd else 'fwd'} {'x'.join(map(str, shape))}"
+                timed[key] = dict(ms=k, plain_ms=p, library_ms=lib,
+                                  bound_ms=bnd[0], of_bound=bnd[0] / k,
+                                  device_ms=dev[0], plain_device_ms=dev[1],
+                                  library_device_ms=dev[2])
+                log(f"gelu {key} bf16: kernel {k:.4f} ms "
+                    f"({100 * bnd[0] / k:.1f}% of bound), plain {p:.4f}, "
+                    f"library {lib:.4f}, bound {bnd[0]:.4f} ({bnd[1]}); "
+                    f"device ms (torch.profiler) kernel, plain, library "
+                    f"{dev} ({smi})")
+        del x, g
+    log(f"gelu: kernels = eager bit for bit at {len(GELU_SHAPES)} fc1 "
+        f"shapes {GELU_SHAPES}")
+    step = _gelu_traced_step(fg)
+    log(f"gelu: traced b128 static step: gelu_kernel share {step['share']}, "
+        f"{step['elements']} elements = 3072 x the MLPs' rows "
+        f"{step['mlp_rows']}; its GELU kernels' device ms "
+        f"{step['device_ms']}")
+    build = build_fields("gelu_poly", GELU_DESIGN, {
+        "fwd": ("gelu_poly_fwd_kernel",), "bwd": ("gelu_poly_bwd_kernel",)})
+    log(f"gelu: registers {build['registers']}, spill bytes "
+        f"{build['spill_bytes']}; phase 27: {time.perf_counter() - t0:.1f} s")
+    return {"timed": timed, "step": step, "build": build}
 
 
 def main():
@@ -5007,6 +5284,7 @@ def run_phases(tmp):
     dp = data_parallel_path(tmp, corpus, walks, finetune_launches, ft_loader,
                             smi)
     tp = tensor_parallel_path(tmp, corpus, smi)
+    gelu = gelu_path(smi)
     if LSE_CHECKS["count"] == 0:
         raise AssertionError("no row log-sum-exp L was held against plain")
     audioset, esc50 = pre_counts["AudioSet"], pre_counts["ESC-50"]
@@ -5228,6 +5506,34 @@ def run_phases(tmp):
                         "bf16": ("ln_matmul_bf16_tc_kernel",),
                         "f32": ("ln_matmul_f32_kernel",)})),
     ]
+    gelu_paths = dict(GELU_LAUNCHES, tp_ranks=tuple(tp[2:4]))
+    for i, (d, name) in enumerate((("fwd", "gelu_poly_fwd_kernel"),
+                                   ("bwd", "gelu_poly_bwd_kernel"))):
+        e = gelu["timed"][f"{d} 128x257x3072"]
+        fields = {k: v[d] for k, v in gelu["build"].items() if k != "design"}
+        kernels.append(_entry(
+            f"gelu_poly_{d}", "gelu_poly.cu", "tpat_tpu/ops/fast_gelu.py:46",
+            sum(v[i] for v in gelu_paths.values()), 0.0, e["ms"], e["plain_ms"],
+            (e["bound_ms"], "bytes"), e["library_ms"],
+            "one call at (128, 257, 3072) bf16", kernel=name,
+            shapes={k: v for k, v in gelu["timed"].items()
+                    if k.startswith(d)},
+            device_ms=e["device_ms"], plain_device_ms=e["plain_device_ms"],
+            library_device_ms=e["library_device_ms"],
+            step_device_ms=gelu["step"]["device_ms"][name],
+            gelu_kernel_share=gelu["step"]["share"],
+            design=gelu["build"]["design"], **fields,
+            path_launches={k: v[i] for k, v in gelu_paths.items()},
+            note="launches: the main paths' own (path_launches), each "
+                 "counted from zero over its run, one a block (12 a ViT "
+                 "step or bucket forward, 28 an MAE step); phase 25's ranks "
+                 "and phase 27's checks and timings are not counted; "
+                 "bit-equal to the eager ops (max_abs_err 0); the library "
+                 "is F.gelu and aten.gelu_backward (the exact erf GELU), "
+                 "which the port does not call on these paths; "
+                 "step_device_ms: the kernel's device ms in one traced b128 "
+                 "static finetune step (null where the profiler recorded "
+                 "no kernel)"))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

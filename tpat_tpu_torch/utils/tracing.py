@@ -26,7 +26,9 @@ Span names: ``train.{step,forward,backward,update,grad_sync}``
 (``engine/train.py``), ``pretrain.{step,forward,backward,update,
 grad_sync}`` (``engine/pretrain.py``), ``vit.prune`` (``models/vit.py``),
 ``serve.request`` (``utils/serving.py``); the count ``attention_rows``
-(``models/vit.py``: the token rows a block's attention computes).
+(``models/vit.py``: the token rows a block's attention computes) and the
+counts ``gelu_kernel`` and ``gelu_eager`` (``ops/fast_gelu.py``: a GELU
+call's elements, by the path it took).
 """
 
 from __future__ import annotations
